@@ -1,0 +1,121 @@
+"""Chunked paged-prefill attention: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+Counterpart of ``repro/kernels/prefill_attention.py`` (the Pallas
+``_chunk_kernel``). The JAX engine vmaps a per-slot kernel over the
+slots; here one launch (``csrc/chunked_prefill.cu``) covers every slot
+of the fixed-shape chunk step, and idle slots (``n_valid == 0``) write
+zeros and read nothing.
+
+A tensor on the CPU takes the plain version; a CUDA tensor launches the
+kernel or raises. Nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import ref, runtime
+
+NAME = "chunked_prefill"
+THREADS = 256
+BLOCK_M = 64                     # query rows (chunk token, grouped head) per block
+MAX_SMEM = 227 * 1024
+_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_argtypes_set = False
+
+plain = ref.chunked_prefill_attention_batched_ref
+
+
+def _lib():
+    global _argtypes_set
+    lib = runtime.load(NAME)
+    if not _argtypes_set:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.chunked_prefill_bf16, lib.chunked_prefill_f32):
+            fn.argtypes = [P] * 10 + [I] * 9 + [ctypes.c_float, I, I, P]
+            fn.restype = I
+        lib.chunked_prefill_smem_bytes.argtypes = [I, I, I]
+        lib.chunked_prefill_smem_bytes.restype = ctypes.c_size_t
+        _argtypes_set = True
+    return lib
+
+
+def _check(q, pool_k, pool_v, cur_k, cur_v, block_table, window_base,
+           start_pos, n_valid):
+    if q.dim() != 4 or pool_k.dim() != 4:
+        raise ValueError(f"q must be (B,C,H,hd) and pools (P,BT,KV,hd); got "
+                         f"{tuple(q.shape)} / {tuple(pool_k.shape)}")
+    B, C, H, hd = q.shape
+    P, BT, KV, hd2 = pool_k.shape
+    if hd2 != hd or pool_v.shape != pool_k.shape:
+        raise ValueError("pool_k/pool_v must be (P, BT, KV, hd) with q's hd")
+    if H % KV:
+        raise ValueError(f"n_heads {H} not a multiple of n_kv_heads {KV}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"kernel takes bf16 or f32, not {q.dtype}")
+    for name, x, shape in (("pool_k", pool_k, None), ("pool_v", pool_v, None),
+                           ("cur_k", cur_k, (B, C, KV, hd)),
+                           ("cur_v", cur_v, (B, C, KV, hd))):
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+    if block_table.dim() != 2 or block_table.shape[0] != B:
+        raise ValueError("block_table must be (B, NB)")
+    for name, x in (("block_table", block_table), ("window_base", window_base),
+                    ("start_pos", start_pos), ("n_valid", n_valid)):
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+        if x is not block_table and tuple(x.shape) != (B,):
+            raise ValueError(f"{name} must be ({B},), got {tuple(x.shape)}")
+    for name, x in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
+                    ("cur_k", cur_k), ("cur_v", cur_v),
+                    ("block_table", block_table), ("window_base", window_base),
+                    ("start_pos", start_pos), ("n_valid", n_valid)):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if hd > 256 or BT > 256:
+        raise ValueError(f"kernel takes hd <= 256 and BT <= 256 "
+                         f"(got hd={hd}, BT={BT})")
+
+
+def chunked_prefill_attention(q, pool_k, pool_v, cur_k, cur_v, block_table,
+                              window_base, start_pos, n_valid, *,
+                              near_window: int, skip_extent: bool = True
+                              ) -> torch.Tensor:
+    """q: (B, C, H, hd); pool_k/pool_v: (P, BT, KV, hd); cur_k/cur_v:
+    (B, C, KV, hd); block_table: (B, NB) int32; window_base, start_pos,
+    n_valid: (B,) int32. Returns (B, C, H, hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return plain(q, pool_k, pool_v, cur_k, cur_v, block_table,
+                     window_base, start_pos, n_valid, near_window=near_window,
+                     skip_extent=skip_extent)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check(q, pool_k, pool_v, cur_k, cur_v, block_table, window_base,
+           start_pos, n_valid)
+    B, C, H, hd = q.shape
+    P, BT, KV, _ = pool_k.shape
+    NB = block_table.shape[1]
+    lib = _lib()
+    smem = lib.chunked_prefill_smem_bytes(BLOCK_M, hd, BT)
+    if smem > MAX_SMEM:
+        raise ValueError(f"shape needs {smem} B of shared memory "
+                         f"(> {MAX_SMEM}): hd={hd} BT={BT}")
+    out = torch.empty_like(q)
+    fn = (lib.chunked_prefill_bf16 if q.dtype == torch.bfloat16
+          else lib.chunked_prefill_f32)
+    p = runtime.ptr
+    status = fn(p(q), p(pool_k), p(pool_v), p(cur_k), p(cur_v),
+                p(block_table), p(window_base), p(start_pos), p(n_valid),
+                p(out), B, C, H, KV, hd, BT, NB, int(near_window),
+                int(bool(skip_extent)), 1.0 / math.sqrt(hd), BLOCK_M, THREADS,
+                runtime.stream_ptr(q.device))
+    runtime.check_status(NAME, status)
+    runtime.count_launch(NAME)
+    return out

@@ -1,0 +1,45 @@
+"""Weight conversion from the JAX reference's parameter tree.
+
+torch cannot reproduce jax's PRNG, so parity runs carry the reference's
+weights over instead of re-drawing them. The input is the reference's
+params as a nested dict of numpy arrays (layers stacked with a leading L
+axis, as ``lax.scan`` consumes them); the output is the port's layout (a
+list of per-layer dicts). bf16 arrays (numpy dtype name ``bfloat16``) go
+through f32, which is exact.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import common as cm
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _layer(tree, i):
+    return _map(tree, lambda a: np.asarray(a)[i])
+
+
+def params_from_reference(tree, *, device="cpu") -> dict:
+    """Reference params (nested dict of numpy arrays) -> the port's params."""
+    cm.set_matmul_precision()
+    stacked = tree["layers"]
+    n_layers = np.asarray(stacked["ln1"]["scale"]).shape[0]
+    out = {k: _map(v, lambda a: _tensor(a, device))
+           for k, v in tree.items() if k != "layers"}
+    out["layers"] = [_map(_layer(stacked, i), lambda a: _tensor(a, device))
+                     for i in range(n_layers)]
+    return out
