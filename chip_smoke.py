@@ -12,21 +12,36 @@ Phases, in order; any failure raises and the script exits non-zero:
              the parity shapes and at full qwen2.5-32b width, in bf16
              (atol = rtol = 2e-2: the plain version rounds p to bf16 before
              P·V as the reference does, the kernel keeps f32) and f32
-             (atol 1e-4); skip-extent on and off bitwise equal; CUDA-event
-             times of the kernel, the plain version and one PyTorch
-             library call (``scaled_dot_product_attention`` on the gathered
-             window, a yardstick the port never calls), beside the bound.
+             (atol 1e-4); the decode kernel also with the far view (its
+             far_util within 1e-4), the summarize kernel within one bf16
+             ulp / 1e-5 in f32; skip-extent on and off bitwise equal, a far
+             view with every entry masked bitwise equal to none, far_util
+             equal from run to run; CUDA-event times of the kernel, the
+             plain version and one PyTorch library call (a yardstick the
+             port never calls: ``scaled_dot_product_attention`` on the
+             gathered window (+ far entries), ``torch.mean`` over the
+             gathered chunk), beside the bound.
 4. serve   — ``repro_torch.launch.serve.main`` at full qwen2.5-32b width
              (8 layers by default), paged_merge, 16 mixed requests; every
              request finishes, one frame commit per step, the pager leaks
              nothing, and the launch counters (zeroed just before) equal
              steps x layers and chunk dispatches x layers.
-5. parity  — the same trace at full width with 2 layers, through the
+5. serve_full — the same trace through ``--mode full`` (near window 256,
+             sv_chunk 64, farview_cap 16, so max_chunks 13): the same
+             checks, summaries written and their blocks trimmed, the
+             chunked prefill executor off, the summarize and decode
+             launches each equal to steps x layers, and a peak of reserved
+             KV below the paged_merge phase's on the same trace.
+6. parity  — the serve trace at full width with 2 layers, through the
              kernels and through the plain versions: per-rid token streams
              agree up to a near-tie (plain top-2 logit margin < 5e-2 at the
              first difference), the plain run launches no kernel, and
              steps / frames / pager stats equal a CPU run of the reduced
              config on the same lengths.
+7. parity_full — the same in ``mode="full"`` (streams may part where the
+             plain top-2 margin is below ``TIE_MARGIN_FULL``), each slot's
+             far utility per step agrees while its request's inputs are
+             identical, and the far tables equal the CPU run's.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -48,6 +63,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate and per-type
 # arithmetic rates used for each kernel's bound
 HBM_BYTES_S = 3.35e12
+# a device spin of ~0.1 s at the H100's 1.98 GHz boost clock: longer than
+# the host needs to enqueue one timing's launches
+SPIN_CYCLES = 200_000_000
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 ARCH = "qwen2.5-32b"
@@ -56,11 +74,30 @@ SERVE = dict(batch=8, max_seq=1024, near_window=512, block_tokens=16,
              gen_len=(16, 128), seed=0)
 TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2),
        "float32": dict(atol=1e-4, rtol=0.0)}
+# mode="full": the serve trace with a 256-token near window (sv_chunk 64 and
+# farview_cap 16 are EngineConfig's defaults)
+SERVE_FULL = dict(SERVE, near_window=256)
+# summaries: one bf16 ulp, or a 64-term f32 sum taken in another order
+SUM_TOL = {"float32": 1e-5}
+# far_util (f32 sums of probabilities the kernel and the plain version
+# compute from the same scores)
+UTIL_TOL = 1e-4
 TIE_MARGIN = 5e-2
 # kernel vs plain logits on identical inputs (full width, 2 layers): bf16
 # logits near |5| have an ulp of 3.1e-2, and the plain version's bf16
 # rounding of p moves attention outputs by up to the 2e-2 kernel tolerance
 LOGIT_TOL = 0.25
+# mode="full" feeds every prompt token through the decode step, one at a
+# time, so each path's K/V history holds its own bf16 roundings of every
+# prompt token (chunked prefill writes them 64 at a time in paged_merge).
+# Two logits that each round up to two bf16 ulps apart at magnitudes in
+# [4, 8) (ulp 0.03125) can swap order within a margin of 0.125
+TIE_MARGIN_FULL = 0.125
+# per-step far utility of one slot, kernel vs plain, while its request's
+# inputs are identical: a sum over 40 heads of probabilities whose queries
+# passed through attention outputs that differ within the kernel tolerance
+# (1.8e-4 measured on an H100)
+FAR_UTIL_STEP_TOL = 1e-2
 
 
 def log(*a):
@@ -135,9 +172,15 @@ def chunk_inputs(torch, dev, dtype, *, B, C, H, KV, hd, BT, NB, P,
 
 
 def time_ms(torch, fn, iters=20, warmup=3):
+    """Device time per call: the timed launches queue up behind a spin of
+    the card (``torch.cuda._sleep``) before the first event, so a call
+    whose host-side launch costs more than its device work (a small kernel
+    behind a Python wrapper) is timed by its device work, not by the
+    host's launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -190,6 +233,105 @@ def check_chunk(torch, pfa, dev, dtype, shape, seed):
     return d, W, err
 
 
+def far_inputs(torch, dev, dtype, *, B, KV, hd, MAXC, CAP, n_chunks, seed):
+    """Far pools and the table the host policy selects for slots holding
+    n_chunks summaries: arange(n) when n <= CAP, else CAP of them."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    table = torch.zeros(B, CAP, dtype=torch.int32)
+    valid = torch.zeros(B, CAP, dtype=torch.int32)
+    for b, n in enumerate(n_chunks):
+        if n <= CAP:
+            table[b, :n] = torch.arange(n, dtype=torch.int32)
+            valid[b, :n] = 1
+        else:
+            table[b] = torch.randperm(n, generator=g)[:CAP].sort().values
+            valid[b] = 1
+    rn = lambda *s: torch.randn(*s, generator=g).to(dtype)
+    d = dict(far_k=rn(B, MAXC, KV, hd), far_v=rn(B, MAXC, KV, hd),
+             far_table=table, far_valid=valid)
+    return {k: v.to(dev) for k, v in d.items()}
+
+
+def check_decode_far(torch, pa, dev, dtype, shape, far_shape, seed):
+    d, W = decode_inputs(torch, dev, dtype, seed=seed, **shape)
+    f = far_inputs(torch, dev, dtype, B=shape["B"], KV=shape["KV"],
+                   hd=shape["hd"], seed=seed + 1, **far_shape)
+    args = [d[k] for k in ("q", "pool_k", "pool_v", "block_table",
+                           "window_base", "seq_lens", "slot_active")]
+    kw = dict(near_window=W, cur_k=d["cur_k"], cur_v=d["cur_v"])
+    on, u_on = pa.paged_decode_attention(*args, skip_extent=True, **kw, **f)
+    off, u_off = pa.paged_decode_attention(*args, skip_extent=False, **kw,
+                                           **f)
+    again, u_again = pa.paged_decode_attention(*args, skip_extent=True, **kw,
+                                               **f)
+    masked = dict(f, far_valid=torch.zeros_like(f["far_valid"]))
+    none, u_none = pa.paged_decode_attention(*args, skip_extent=True, **kw,
+                                             **masked)
+    base = pa.paged_decode_attention(*args, skip_extent=True, **kw)
+    want, u_want = pa.plain(*args, skip_extent=True, **kw, **f)
+    torch.cuda.synchronize()
+    tag = f"({dtype}, {shape}, {far_shape})"
+    if not (torch.equal(on, off) and torch.equal(u_on, u_off)):
+        raise AssertionError(f"paged_decode far view: skip on != off {tag}")
+    if not (torch.equal(on, again) and torch.equal(u_on, u_again)):
+        raise AssertionError(f"paged_decode far view: two runs differ {tag}")
+    if not torch.equal(none, base) or u_none.any():
+        raise AssertionError(f"paged_decode: an all-masked far view is not "
+                             f"a bitwise no-op {tag}")
+    err = (on.float() - want.float()).abs().max().item()
+    uerr = (u_on - u_want).abs().max().item()
+    if not torch.allclose(on.float(), want.float(), **TOL[str(dtype)[6:]]):
+        raise AssertionError(f"paged_decode far view vs plain: max abs err "
+                             f"{err} {tag}")
+    if not uerr <= UTIL_TOL:
+        raise AssertionError(f"far_util vs plain: max abs err {uerr} {tag}")
+    if not u_on.sum() > 0:
+        raise AssertionError(f"far_util is all zero {tag}")
+    return d, f, W, max(err, uerr)
+
+
+def summarize_inputs(torch, dev, dtype, *, P, BT, KV, hd, B, CB, n_tokens,
+                     gate, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    blocks = (torch.randperm(P - 1, generator=g)[:B * CB] + 1).reshape(B, CB)
+    rn = lambda *s: torch.randn(*s, generator=g).to(dtype)
+    d = dict(pool_k=rn(P, BT, KV, hd), pool_v=rn(P, BT, KV, hd),
+             chunk_blocks=blocks.to(torch.int32),
+             n_tokens=torch.tensor(n_tokens, dtype=torch.int32),
+             do_summarize=torch.tensor(gate, dtype=torch.int32))
+    return {k: v.to(dev) for k, v in d.items()}
+
+
+def check_summarize(torch, fvs, dev, dtype, shape, seed):
+    d = summarize_inputs(torch, dev, dtype, seed=seed, **shape)
+    meta = [d[k] for k in ("chunk_blocks", "n_tokens", "do_summarize")]
+    sk, sv = fvs.farview_summarize(d["pool_k"], d["pool_v"], *meta)
+    again = fvs.farview_summarize(d["pool_k"], d["pool_v"], *meta)
+    wk, wv = fvs.plain(d["pool_k"], *meta), fvs.plain(d["pool_v"], *meta)
+    torch.cuda.synchronize()
+    tag = f"({dtype}, {shape})"
+    if not (torch.equal(sk, again[0]) and torch.equal(sv, again[1])):
+        raise AssertionError(f"farview_summarize: two runs differ {tag}")
+    off = d["do_summarize"] <= 0
+    if sk[off].any() or sv[off].any():
+        raise AssertionError(f"farview_summarize: a gated-off slot is not 0 "
+                             f"{tag}")
+    err = 0.0
+    for got, want in ((sk, wk), (sv, wv)):
+        diff = (got.float() - want.float()).abs()
+        err = max(err, diff.max().item())
+        if dtype == torch.bfloat16:      # one bf16 ulp of the larger value
+            mag = torch.maximum(got.float().abs(), want.float().abs())
+            ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+            ok = bool((diff <= torch.where(mag > 0, ulp, 0)).all())
+        else:
+            ok = diff.max().item() <= SUM_TOL["float32"]
+        if not ok:
+            raise AssertionError(f"farview_summarize vs plain: max abs err "
+                                 f"{err} {tag}")
+    return d, err
+
+
 def decode_work(d, W, BT, elem):
     """Bytes the decode function must move (each input once: q, the window
     blocks in each active slot's extent, the current token, the output) and
@@ -233,6 +375,40 @@ def chunk_work(d, W, BT, elem):
             ctx = max(0, s - max(0, p - W + 1))       # pool keys before s
             own = min(c + 1, W)                       # chunk keys, causal
             flops += 4 * H * hd * (ctx + own)
+    return byts, flops
+
+
+def decode_far_work(d, f, W, BT, elem):
+    """decode_work plus the far view: each active slot's valid far rows (K
+    and V of every kv head), the table and validity, far_util; QK and PV
+    over those rows."""
+    byts, flops = decode_work(d, W, BT, elem)
+    B, H, hd = d["q"].shape
+    KV = d["pool_k"].shape[2]
+    CAP = f["far_table"].shape[1]
+    byts += 2 * B * CAP * 4 + B * CAP * 4
+    for b in range(B):
+        if int(d["slot_active"][b]) <= 0:
+            continue
+        n = int(f["far_valid"][b].sum())
+        byts += n * KV * hd * 2 * elem
+        flops += 4 * H * hd * n
+    return byts, flops
+
+
+def summarize_work(d, elem):
+    """Both pools' rows of each gated slot's chunk once, both summaries
+    written once; one add per row value and one divide per output."""
+    P, BT, KV, hd = d["pool_k"].shape
+    B, CB = d["chunk_blocks"].shape
+    width = KV * hd
+    byts = 2 * B * width * elem + B * CB * 4 + 2 * B * 4
+    flops = 2 * B * width
+    for b in range(B):
+        if int(d["do_summarize"][b]) > 0:
+            rows = min(max(int(d["n_tokens"][b]), 0), CB * BT)
+            byts += 2 * rows * width * elem
+            flops += 2 * rows * width
     return byts, flops
 
 
@@ -284,7 +460,46 @@ def sdpa_chunk(torch, d, W):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m)
 
 
+def sdpa_decode_far(torch, d, f, W):
+    """One library call on the gathered far entries + window + current
+    token (the far view's yardstick; nothing on the main path calls it)."""
+    import torch.nn.functional as F
+    B, H, hd = d["q"].shape
+    P, BT, KV, _ = d["pool_k"].shape
+    n_rep = H // KV
+    tbl = d["block_table"].long()
+    Wt = tbl.shape[1] * BT
+    idx = f["far_table"].long()[:, :, None, None].expand(-1, -1, KV, hd)
+    fk = torch.gather(f["far_k"], 1, idx)
+    fv = torch.gather(f["far_v"], 1, idx)
+    k = torch.cat([fk, d["pool_k"][tbl].reshape(B, Wt, KV, hd),
+                   d["cur_k"][:, None]], 1).permute(0, 2, 1, 3)
+    v = torch.cat([fv, d["pool_v"][tbl].reshape(B, Wt, KV, hd),
+                   d["cur_v"][:, None]], 1).permute(0, 2, 1, 3)
+    k = k.repeat_interleave(n_rep, 1).contiguous()
+    v = v.repeat_interleave(n_rep, 1).contiguous()
+    pos = d["window_base"].long()[:, None] + torch.arange(Wt, device=k.device)
+    t = d["seq_lens"].long()[:, None]
+    m = (pos < t) & (pos > t - W) & (pos >= 0)
+    m = torch.cat([f["far_valid"] > 0, m, torch.ones_like(m[:, :1])], 1)
+    m = m[:, None, None, :]
+    q = d["q"][:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+
+def mean_summarize(torch, d):
+    """``torch.mean`` over each gated slot's pre-gathered chunk, K and V."""
+    B, CB = d["chunk_blocks"].shape
+    P, BT, KV, hd = d["pool_k"].shape
+    on = (d["do_summarize"] > 0).nonzero().flatten()
+    tbl = d["chunk_blocks"][on].long()
+    gk = d["pool_k"][tbl].reshape(len(on), CB * BT, KV, hd)
+    gv = d["pool_v"][tbl].reshape(len(on), CB * BT, KV, hd)
+    return lambda: (torch.mean(gk, dim=1), torch.mean(gv, dim=1))
+
+
 def phase_kernels(torch):
+    from repro_torch.kernels import farview_summarize as fvs
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import prefill_attention as pfa
     dev = torch.device("cuda")
@@ -304,8 +519,36 @@ def phase_kernels(torch):
                      start_pos=[0, 64, 300, 512, 600, 900, 128, 0],
                      n_valid=[64, 64, 30, 64, 17, 64, 0, 1]),
     }
+    # the far view at the parity shapes (cap 4 below 5 and 7 summaries) and
+    # at serve_full's (max_chunks 13, cap 16, mixed fill)
+    far_shapes = {
+        "parity": dict(MAXC=7, CAP=4, n_chunks=[0, 5, 2, 7]),
+        "full": dict(MAXC=13, CAP=16, n_chunks=[0, 3, 13, 7, 13, 1, 0, 0]),
+    }
+    # serve_full's pool (521 blocks of 16 tokens, KV 8 x hd 128), sv_chunk
+    # 64 = 4 blocks, three slots completing a chunk in the same step
+    sum_shapes = {
+        "parity": dict(P=40, BT=8, KV=2, hd=16, B=4, CB=2,
+                       n_tokens=[16, 0, 11, 16], gate=[1, 0, 1, 1]),
+        "full": dict(P=521, BT=16, KV=8, hd=128, B=8, CB=4,
+                     n_tokens=[64, 0, 0, 64, 64, 0, 0, 0],
+                     gate=[1, 0, 0, 1, 1, 0, 0, 0]),
+    }
     res = {}
     for dtype in (torch.bfloat16, torch.float32):
+        for name, shp in dec_shapes.items():
+            d, f, W, err = check_decode_far(torch, pa, dev, dtype, shp,
+                                            far_shapes[name], seed=3)
+            log(f"paged_decode far view {name} {dtype}: max_abs_err "
+                f"{err:.3e}; skip on == off, run == run, all-masked far "
+                f"view == none, bitwise")
+            if name == "full" and dtype == torch.bfloat16:
+                res["paged_decode_far"] = (d, f, W, err, shp["BT"])
+        for name, shp in sum_shapes.items():
+            d, err = check_summarize(torch, fvs, dev, dtype, shp, seed=4)
+            log(f"farview_summarize {name} {dtype}: max_abs_err {err:.3e}")
+            if name == "full" and dtype == torch.bfloat16:
+                res["farview_summarize"] = (d, err)
         for name, shp in dec_shapes.items():
             d, W, err = check_decode(torch, pa, dev, dtype, shp, seed=1)
             log(f"paged_decode {name} {dtype}: max_abs_err {err:.3e}; "
@@ -349,9 +592,37 @@ def phase_kernels(torch):
             *args, near_window=W, skip_extent=True)),
         library_ms=time_ms(torch, sdpa_chunk(torch, d, W)),
         **bound(byts, flops, "bfloat16"))
+    d, f, W, err, BT = res["paged_decode_far"]
+    args = [d[k] for k in ("q", "pool_k", "pool_v", "block_table",
+                           "window_base", "seq_lens", "slot_active")]
+    kw = dict(near_window=W, cur_k=d["cur_k"], cur_v=d["cur_v"],
+              skip_extent=True, **f)
+    byts, flops = decode_far_work(d, f, W, BT, 2)
+    rows["paged_decode_far"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
+        replaces="src/repro/kernels/paged_attention.py:80",
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: pa.paged_decode_attention(*args, **kw)),
+        plain_ms=time_ms(torch, lambda: pa.plain(*args, **kw)),
+        library_ms=time_ms(torch, sdpa_decode_far(torch, d, f, W)),
+        **bound(byts, flops, "bfloat16"))
+    d, err = res["farview_summarize"]
+    meta = [d[k] for k in ("chunk_blocks", "n_tokens", "do_summarize")]
+    byts, flops = summarize_work(d, 2)
+    rows["farview_summarize"] = dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/farview_summarize.cu",
+        replaces="src/repro/kernels/farview_summarize.py:20",
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: fvs.farview_summarize(
+            d["pool_k"], d["pool_v"], *meta)),
+        plain_ms=time_ms(torch, lambda: (fvs.plain(d["pool_k"], *meta),
+                                         fvs.plain(d["pool_v"], *meta))),
+        library_ms=time_ms(torch, mean_summarize(torch, d)),
+        **bound(byts, flops, "float32"))
     for k, r in rows.items():
-        log(f"{k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, sdpa "
-            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+        log(f"{k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
     return rows
 
@@ -368,9 +639,9 @@ def bound(byts, flops, dtype):
 # phases 4 and 5: the engine
 # ---------------------------------------------------------------------------
 
-def serve_argv(n_layers, device="cuda", full_width=True):
-    s = SERVE
-    return ["--arch", ARCH, "--mode", "paged_merge", "--workload", "mixed",
+def serve_argv(n_layers, device="cuda", full_width=True, mode="paged_merge"):
+    s = SERVE_FULL if mode == "full" else SERVE
+    return ["--arch", ARCH, "--mode", mode, "--workload", "mixed",
             "--requests", str(s["requests"]), "--batch", str(s["batch"]),
             "--max-seq", str(s["max_seq"]),
             "--near-window", str(s["near_window"]),
@@ -425,17 +696,88 @@ def phase_serve(torch, n_layers, device="cuda", full_width=True):
     return launches, summary
 
 
-def phase_parity(torch, n_layers=2, device="cuda", full_width=True):
+def phase_serve_full(torch, n_layers, merge_peak=None, device="cuda",
+                     full_width=True):
+    """The serve trace in mode="full"; ``merge_peak`` is the paged_merge
+    phase's peak reserved KV on the same trace."""
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import serve
+    runtime.reset_launches()
+    out, engines = serve.main(serve_argv(n_layers, device, full_width,
+                                         mode="full"), return_engines=True)
+    launches = dict(runtime.LAUNCHES)
+    eng = engines[0]
+    a, L = check_engine(eng, SERVE_FULL["requests"])
+    assert (eng.cap, eng.max_chunks, eng.W) == (16, 13, 256), (
+        eng.cap, eng.max_chunks, eng.W)
+    # chunked prefill is off in full mode, whatever --prefill-chunk says
+    assert a["prefill_chunk"] == 0 and a["chunk_kernel_launches"] == 0, a
+    assert launches["chunked_prefill"] == 0, launches
+    # summaries were written and their blocks trimmed (beyond the one
+    # close-trim per retired request)
+    assert int(eng.fv.n_chunks.sum()) > 0, eng.fv.n_chunks
+    trims = eng.pager.stats["trim_ops"]
+    assert trims > SERVE_FULL["requests"], eng.pager.stats
+    steps = eng.steps_run
+    if device == "cuda":
+        assert a["decode_kernel_launches"] == steps * L, a
+        assert a["farview_kernel_launches"] == steps * L, a
+        assert launches["paged_decode"] == steps * L, launches
+        assert launches["farview_summarize"] == steps * L, launches
+    peak = a["peak_reserved_kv"]
+    if merge_peak is not None:
+        assert peak < merge_peak, (peak, merge_peak)
+    lat = out["latency"]
+    summary = dict(
+        tokens_s=out["throughput_tok_s"], wall_tok_s=out["wall_tok_s"],
+        step_p50_ms=lat["p50_ms"], step_p95_ms=lat["p95_ms"],
+        step_p99_ms=lat["p99_ms"], steps=steps, tokens=out["tokens"],
+        n_layers=L, peak_reserved_kv_bytes=peak,
+        paged_merge_peak_reserved_kv_bytes=merge_peak,
+        max_memory_allocated=out.get("max_memory_allocated"),
+        summary_trims=trims - SERVE_FULL["requests"],
+        pager_stats=dict(eng.pager.stats))
+    log("serve_full:", json.dumps(summary))
+    del engines, eng
+    return launches, summary
+
+
+def record_far(eng):
+    """Log the far policy of ``eng``: each selection (step, slot, rid,
+    tokens generated so far, summaries, table, validity) and each step's
+    far utility readback."""
+    log_ = {"select": [], "util": []}
+    select, observe = eng.fv.select, eng.fv.observe_utility
+
+    def rec_select(row):
+        tbl, val = select(row)
+        req = eng.sched.request_at(row)
+        log_["select"].append((eng.steps_run, row, req.rid,
+                               len(req.generated), int(eng.fv.n_chunks[row]),
+                               tbl.tolist(), val.tolist()))
+        return tbl, val
+
+    def rec_observe(far_util, far_table):
+        log_["util"].append(np.array(far_util, np.float32))
+        observe(far_util, far_table)
+
+    eng.fv.select, eng.fv.observe_utility = rec_select, rec_observe
+    return log_
+
+
+def phase_parity(torch, mode="paged_merge", n_layers=2, device="cuda",
+                 full_width=True):
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.kernels import ops, runtime
     from repro_torch.launch import serve
     from repro_torch.models import registry
     from repro_torch.serving.factory import build
-    s = SERVE
+    s = SERVE_FULL if mode == "full" else SERVE
+    far = mode == "full"
     cfg = (get_config(ARCH) if full_width else get_reduced(ARCH)).replace(
         n_layers=n_layers)
     params = registry.init_params(cfg, seed=s["seed"], device=device)
-    ekw = dict(mode="paged_merge", batch=s["batch"], max_seq=s["max_seq"],
+    ekw = dict(mode=mode, batch=s["batch"], max_seq=s["max_seq"],
                near_window=s["near_window"], block_tokens=s["block_tokens"],
                prefill_chunk=s["prefill_chunk"])
 
@@ -450,14 +792,18 @@ def phase_parity(torch, n_layers=2, device="cuda", full_width=True):
         runtime.reset_launches()
         eng = build(ARCH, cfg=cfg, params=params, device=device,
                     debug_logits=True, **ekw)[0]
+        fl = record_far(eng) if far else None
         serve.run_lanes([eng], trace())
         check_engine(eng, s["requests"])
-        runs[impl] = (eng, dict(runtime.LAUNCHES))
+        runs[impl] = (eng, dict(runtime.LAUNCHES), fl)
     ops.set_default_impl("kernel")
-    k_eng, k_launch = runs["kernel"]
-    p_eng, p_launch = runs["plain"]
+    k_eng, k_launch, k_far = runs["kernel"]
+    p_eng, p_launch, p_far = runs["plain"]
     if device == "cuda":
         assert k_launch["paged_decode"] == k_eng.steps_run * n_layers, k_launch
+        if far:
+            assert k_launch["farview_summarize"] == \
+                k_eng.steps_run * n_layers, k_launch
     assert p_launch == {k: 0 for k in p_launch}, p_launch
 
     for eng in (k_eng, p_eng):
@@ -466,6 +812,7 @@ def phase_parity(torch, n_layers=2, device="cuda", full_width=True):
     preq = {r.rid: r for r in p_eng.sched.finished}
     ties = 0
     first_diff = []
+    margins = []
     logit_diff = 0.0
     n_cmp = 0
     for rid, kr in kreq.items():
@@ -483,17 +830,38 @@ def phase_parity(torch, n_layers=2, device="cuda", full_width=True):
             continue
         top2 = np.sort(pr.logit_trace[i])[-2:]
         margin = float(top2[1] - top2[0])
-        assert margin < TIE_MARGIN, (
+        limit = TIE_MARGIN_FULL if far else TIE_MARGIN
+        assert margin < limit, (
             f"rid {rid}: kernel and plain streams differ at token {i} where "
-            f"the plain top-2 margin is {margin} >= {TIE_MARGIN}")
+            f"the plain top-2 margin is {margin} >= {limit}")
+        margins.append(margin)
         ties += 1
         first_diff.append(i)
     assert logit_diff < LOGIT_TOL, (
         f"kernel vs plain logits differ by {logit_diff} on identical inputs")
+    util_diff, n_util = 0.0, 0
+    if far:
+        # the policy saw the same slots and summaries at every step; each
+        # slot's far utility agrees while its request's inputs are the same
+        assert [x[:5] for x in k_far["select"]] == \
+            [x[:5] for x in p_far["select"]]
+        first = {rid: next((j for j, (a, b) in enumerate(zip(
+            kreq[rid].generated, preq[rid].generated)) if a != b),
+            len(kreq[rid].generated)) for rid in kreq}
+        for step, row, rid, n_gen, *_ in k_far["select"]:
+            if n_gen > first[rid]:
+                continue
+            util_diff = max(util_diff, float(np.abs(
+                k_far["util"][step][row] - p_far["util"][step][row]).max()))
+            n_util += 1
+        assert util_diff < FAR_UTIL_STEP_TOL, (
+            f"kernel vs plain far utility differs by {util_diff}")
+        assert sum(float(u.sum()) for u in k_far["util"]) > 0
 
     # the control plane depends on lengths only: a CPU run of the reduced
     # config over the same lengths must commit the same frames
     cpu = build(ARCH, device="cpu", **ekw)[0]
+    c_far = record_far(cpu) if far else None
     reqs = trace()
     for r in reqs:
         r.prompt = r.prompt % cpu.cfg.vocab_size
@@ -503,12 +871,19 @@ def phase_parity(torch, n_layers=2, device="cuda", full_width=True):
         assert eng.frames_committed == cpu.frames_committed
         assert eng.pager.stats == cpu.pager.stats, (eng.pager.stats,
                                                      cpu.pager.stats)
-    out = dict(steps=k_eng.steps_run, rids=len(kreq),
+    if far:   # cap >= max_chunks: the far tables depend on lengths only
+        assert k_far["select"] == c_far["select"]
+    out = dict(mode=mode, steps=k_eng.steps_run, rids=len(kreq),
                streams_identical=len(kreq) - ties, tie_divergences=ties,
                first_diff_token_index=sorted(first_diff),
+               max_parting_margin=max(margins, default=None),
                logits_compared=n_cmp, logits_max_abs_diff=logit_diff,
                pager_stats_equal_cpu=True)
-    log("parity:", json.dumps(out))
+    if far:
+        out.update(far_util_compared=n_util, far_util_max_abs_diff=util_diff,
+                   far_tables_equal_cpu=True,
+                   trim_ops=k_eng.pager.stats["trim_ops"])
+    log("parity_full:" if far else "parity:", json.dumps(out))
     return out
 
 
@@ -580,7 +955,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-layers", type=int, default=8,
                     help="depth of the full-width serve phase (64 = all)")
-    ap.add_argument("--phases", default="build,kernels,serve,parity",
+    ap.add_argument("--phases",
+                    default="build,kernels,serve,serve_full,parity,"
+                            "parity_full",
                     help="comma-separated subset (the device phase always "
                          "runs); 'profile' adds a torch.profiler pass")
     ap.add_argument("--profile-out", default=None,
@@ -611,13 +988,34 @@ def main(argv=None):
                     log(f"  {name}: {line.strip()}")
 
     rows = phase_kernels(torch) if "kernels" in phases else {}
+    # kernel JSON row -> launches on the path that drives it, each path
+    # with the counters zeroed just before it and read just after
     launches = {}
+    merge_peak = None
     if "serve" in phases:
-        launches, _ = phase_serve(torch, args.n_layers)
-        missing = [k for k, n in launches.items() if n <= 0]
+        lm, summary = phase_serve(torch, args.n_layers)
+        launches["paged_decode"] = lm["paged_decode"]
+        launches["chunked_prefill"] = lm["chunked_prefill"]
+        merge_peak = summary["peak_reserved_kv_bytes"]
+        missing = [k for k in ("paged_decode", "chunked_prefill")
+                   if lm[k] <= 0]
+        assert not missing, f"kernels never launched by serve: {missing}"
+    if "serve_full" in phases:
+        lf, _ = phase_serve_full(torch, args.n_layers, merge_peak)
+        launches["paged_decode_far"] = lf["paged_decode"]
+        launches["farview_summarize"] = lf["farview_summarize"]
+        missing = [k for k in ("paged_decode", "farview_summarize")
+                   if lf[k] <= 0]
+        assert not missing, f"kernels never launched by serve_full: {missing}"
+    if {"serve", "serve_full"} <= phases:
+        missing = [k for k in runtime.SOURCES
+                   if not any(launches.get(r, 0) > 0
+                              for r in (k, k + "_far"))]
         assert not missing, f"kernels never launched on the main path: {missing}"
     if "parity" in phases:
         phase_parity(torch)
+    if "parity_full" in phases:
+        phase_parity(torch, mode="full")
     if "profile" in phases:
         phase_profile(torch, args.n_layers, args.profile_out)
 

@@ -8,7 +8,12 @@ Counterpart of ``repro/core/engine.py`` for the main path:
     assembly, one commit, one device step, one blocking readback;
   * legacy greedy decode with budget EOS;
   * step-level (continuous) admission, and the round-based baseline;
-  * the chunked prefill executor (``prefill_chunk = C > 0``).
+  * the chunked prefill executor (``prefill_chunk = C > 0``);
+  * ``mode="full"``: the bounded far view (paper §4.4, DESIGN.md §5) —
+    completed sv_chunks are summarized on the device and TRIMmed, and
+    decode attends up to ``farview_cap`` summaries chosen by the host's
+    utility EMA (``core/farview.py``). Prompts ride the decode step (the
+    chunked prefill executor is off in this mode, as in the reference).
 
 One step runs scheduler admission, then the pager's RESERVE/ALIAS/TRIM/
 FRAME, then the merge-staged transport, and commits ONE flat int32 buffer
@@ -39,6 +44,7 @@ from repro_torch.core.descriptor import (active_block_extents,
                                          refresh_control_row,
                                          unflatten_chunk_descriptor,
                                          unflatten_descriptor)
+from repro_torch.core.farview import FarViewPolicy
 from repro_torch.core.pager import BlockPager
 from repro_torch.core.scheduler import Request, Scheduler
 from repro_torch.core.transport import MergeStagedTransport
@@ -104,6 +110,24 @@ class StepMetrics:
     emitted: int = 0
 
 
+def _farview_conflict(ecfg: EngineConfig) -> Optional[str]:
+    """The reference's ValueError for a feature ``mode="full"`` excludes
+    (its words: summaries are stored full-width and are slot-indexed state
+    that neither a swap nor a block alias carries)."""
+    if ecfg.mode != "full":
+        return None
+    if ecfg.kv_dtype != "bf16":
+        return ("kv_dtype != 'bf16' requires mode != 'full' "
+                "(far-view summaries are stored full-width)")
+    if ecfg.host_pool_blocks > 0 or ecfg.kv_oversubscribe > 1.0:
+        return ("host KV tier requires a block-paged family "
+                "(dense/vlm/moe) and mode != 'full'")
+    if ecfg.prefix_cache:
+        return ("prefix cache requires a paged mode (not 'arena' or "
+                "'full') and a block-paged family (dense/vlm/moe)")
+    return None
+
+
 def _not_ported(ecfg: EngineConfig) -> Optional[str]:
     """Why this EngineConfig needs a feature the port does not have yet."""
     if ecfg.pipeline_depth >= 1:
@@ -114,8 +138,6 @@ def _not_ported(ecfg: EngineConfig) -> Optional[str]:
                 "sampling with detected EOS)")
     if ecfg.kv_dtype != "bf16":
         return f"kv_dtype={ecfg.kv_dtype!r} (ROADMAP queue 1, item 6f)"
-    if ecfg.mode == "full":
-        return "mode='full' (ROADMAP queue 1, item 6j: the far view)"
     if ecfg.host_pool_blocks > 0 or ecfg.kv_oversubscribe > 1.0:
         return "a host KV tier (ROADMAP queue 1, item 6d)"
     if ecfg.prefix_cache:
@@ -130,6 +152,9 @@ class KVRMEngine:
                  device=None):
         if ecfg.mode not in MODES:
             raise ValueError(f"mode {ecfg.mode!r} not in {MODES}")
+        conflict = _farview_conflict(ecfg)
+        if conflict is not None:
+            raise ValueError(conflict)
         why = _not_ported(ecfg)
         if why is not None:
             raise NotImplementedError(f"the PyTorch port does not have {why}")
@@ -158,13 +183,17 @@ class KVRMEngine:
         self.bytes_per_token = registry.paged_payload_bytes_per_token(
             cfg, ecfg.kv_dtype)
         self.block_bytes = bt * self.bytes_per_token
-        self.cap = 1                     # far-view table width (no far view)
+        self.farview = ecfg.mode == "full"
+        self.cap = ecfg.farview_cap if self.farview else 1
+        self.max_chunks = (-(-max(1, ecfg.max_seq - self.W) // ecfg.sv_chunk)
+                           + 1 if self.farview else 0)
         self.chunk_blocks = max(1, ecfg.sv_chunk // bt)
 
         # --- device state ---
         self.pools = registry.init_decode_pools(
             cfg, batch=ecfg.batch, num_blocks=self.num_blocks,
-            block_tokens=bt, kv_dtype=ecfg.kv_dtype, device=self.device)
+            block_tokens=bt, max_chunks=self.max_chunks,
+            kv_dtype=ecfg.kv_dtype, device=self.device)
 
         # --- host control plane ---
         self.sched = Scheduler(ecfg.batch)
@@ -177,6 +206,8 @@ class KVRMEngine:
             merge_threshold_bytes=cfg.serving.merge_threshold_bytes,
             max_hold_steps=cfg.serving.max_hold_steps, max_trains=self.MT,
             dense_block_bytes=self.block_bytes)
+        self.fv = (FarViewPolicy(ecfg.batch, self.max_chunks, self.cap,
+                                 ecfg.sv_chunk, bt) if self.farview else None)
         self._rid_to_sid: Dict[int, int] = {}
         self._cow_pairs_step: List = []            # COW tail copies to run
         self._cow_origin: Dict[int, int] = {}      # this round: dst -> src
@@ -194,7 +225,8 @@ class KVRMEngine:
             farview_cap=self.cap, sv_chunk=ecfg.sv_chunk,
             merge_threshold_bytes=cfg.serving.merge_threshold_bytes,
             max_hold_steps=cfg.serving.max_hold_steps,
-            enable_farview=False, skip_extent=ecfg.kernel_skip_extent))
+            enable_farview=self.farview,
+            skip_extent=ecfg.kernel_skip_extent))
 
         self.continuous_admits = 0
         self.slot_idle_steps_saved = 0
@@ -208,7 +240,8 @@ class KVRMEngine:
 
         # --- chunked prefill executor (second fixed-shape step) ---
         self._chunked = (ecfg.prefill_chunk > 0
-                         and registry.supports_chunked_prefill(cfg))
+                         and registry.supports_chunked_prefill(cfg)
+                         and not self.farview)
         self.chunk = int(ecfg.prefill_chunk) if self._chunked else 0
         if self._chunked:
             self._cflat = self._host_buffer(chunk_flat_size(B, self.chunk,
@@ -229,6 +262,7 @@ class KVRMEngine:
         # hand-written kernel launches by this engine's device steps
         self._decode_launches = 0
         self._chunk_launches = 0
+        self._farview_launches = 0
 
         # --- persistent flat commit buffer: descriptor + control rows.
         # numpy views into ONE (pinned, on the card) host buffer; one
@@ -305,6 +339,8 @@ class KVRMEngine:
                         self._slot_len[slot] = self.pager.sessions[sid].length
                         req.prompt_pos = int(self._slot_len[slot])
                 self._rid_to_sid[req.rid] = sid
+            if self.fv is not None:
+                self.fv.reset_slot(slot)
         if self._cow_pairs_step:
             # materialize this admit round's COW tails: one batched copy
             pairs, self._cow_pairs_step = self._cow_pairs_step, []
@@ -362,6 +398,29 @@ class KVRMEngine:
         wb = (max(0, t + 1 - self.W) // self.bt) * self.bt
         wb = max(wb, s.trimmed_prefix_blocks * self.bt)
         return wb // self.bt - s.trimmed_prefix_blocks
+
+    # ------------------------------------------------------------------
+    def _farview_step(self, slot: int, t: int, descr) -> None:
+        """Far-view policy for one slot/step: summarize + TRIM a completed
+        chunk (sealed in this step's commit) and select the far table."""
+        sid = int(self._slot_sid[slot])
+        s = self.pager.sessions[sid]
+        n_done = int(self.fv.n_chunks[slot])
+        chunk_end = (n_done + 1) * self.e.sv_chunk
+        if t + 1 - self.W >= chunk_end:
+            first_local = (n_done * self.e.sv_chunk) // self.bt \
+                - s.trimmed_prefix_blocks
+            cb = s.blocks[first_local:first_local + self.chunk_blocks]
+            descr.far_chunk_blocks[slot, :len(cb)] = cb
+            descr.far_chunk_tokens[slot] = self.e.sv_chunk
+            descr.far_do_summarize[slot] = 1
+            descr.far_write_idx[slot] = self.fv.on_chunk_summarized(slot)
+            # TRIM the summarized blocks (bounded budget); the device step
+            # reads them before its post-loop pool write
+            self.pager.trim(sid, prefix_blocks=first_local + self.chunk_blocks)
+        tbl, val = self.fv.select(slot)
+        descr.far_table[slot] = tbl
+        descr.far_valid[slot] = val
 
     # ------------------------------------------------------------------
     def _retire_slot(self, slot: int) -> None:
@@ -500,12 +559,17 @@ class KVRMEngine:
                 descr.write_block[slot] = blk
                 descr.write_offset[slot] = off
 
+            # ---- far-view: chunk completion -> summarize + trim
+            if self.fv is not None:
+                self._farview_step(slot, t, descr)
+
             # ---- window table + Reduce (train merging)
             blocks, wb = self._window_blocks(slot)
             descr.block_table[slot, :len(blocks)] = blocks
             descr.window_base[slot] = wb
             trains, groups = self.transport.reduce(
-                blocks, far_blocks=0, merging=self._merging)
+                blocks, far_blocks=int(descr.far_valid[slot].sum() > 0),
+                merging=self._merging)
             self.transport.fill_train_arrays(
                 trains, descr.train_start, descr.train_len, descr.train_dst,
                 slot)
@@ -535,11 +599,22 @@ class KVRMEngine:
 
         # ---- device: one step, fixed shapes
         self.transport.note_dispatch_overlap()
-        before = runtime.LAUNCHES["paged_decode"]
-        logits, self.pools = registry.decode_step(
+        before = dict(runtime.LAUNCHES)
+        logits, self.pools, fu = registry.decode_step(
             self.params, self._cfg_dec, dtokens, self.pools, ddescr)
-        self._decode_launches += runtime.LAUNCHES["paged_decode"] - before
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        self._decode_launches += runtime.LAUNCHES["paged_decode"] \
+            - before["paged_decode"]
+        self._farview_launches += runtime.LAUNCHES["farview_summarize"] \
+            - before["farview_summarize"]
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if fu is None:
+            nxt = nxt.cpu().numpy()
+        else:
+            # ONE blocking readback: the tokens and the far utility (its f32
+            # bits carried as int32)
+            back = torch.cat([nxt, fu.view(torch.int32).reshape(-1)]
+                             ).cpu().numpy()
+            nxt, fu = back[:B], back[B:].view(np.float32).reshape(B, self.cap)
         lg = None
         if self.e.debug_logits:
             lg = logits.float().cpu().numpy()
@@ -562,6 +637,8 @@ class KVRMEngine:
             m.emitted += 1
             if done:
                 self._retire_slot(slot)
+        if self.fv is not None:
+            self.fv.observe_utility(fu, descr.far_table)
 
         self.steps_run += 1
         m.wall = time.perf_counter() - t0
@@ -630,6 +707,7 @@ class KVRMEngine:
             "kv_dtype": self.e.kv_dtype,
             "decode_kernel_launches": self._decode_launches,
             "chunk_kernel_launches": self._chunk_launches,
+            "farview_kernel_launches": self._farview_launches,
         }
 
     def reserved_kv_bytes(self) -> int:

@@ -1,6 +1,6 @@
-// Shared pieces of the paged attention kernels (paged_decode.cu,
-// chunked_prefill.cu): element conversion, floor division, and one
-// flash-style online-softmax step over a tile of keys held in shared memory.
+// Shared pieces of the kernels: element conversion (all three), floor
+// division, and one flash-style online-softmax step over a tile of keys held
+// in shared memory (paged_decode.cu, chunked_prefill.cu).
 //
 // Every sum is f32. A key masked for a query row scores -inf and adds
 // nothing; a tile whose keys are all masked for a row leaves that row's
@@ -85,10 +85,14 @@ __device__ inline void init_state(const Tile& t) {
 
 // One online-softmax step over the first `nk` keys of the tile.
 // valid(row, key) says whether query `row` may attend key `key`.
+// `raw`, where given, also receives each scaled score (-inf where masked)
+// at raw[row * raw_ld + key], for a caller that needs a key's probability
+// after the last step (the far view's utility).
 // Entry and exit are block-wide barriers (the tile must be loaded).
 template <typename Valid>
 __device__ inline void online_step(const Tile& t, int nk, float scale,
-                                   Valid valid) {
+                                   Valid valid, float* raw = nullptr,
+                                   int raw_ld = 0) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int hd = t.hd, ks = hd + 1;
   // scores: one (row, key) dot product per thread, f32 FMAs
@@ -103,6 +107,7 @@ __device__ inline void online_step(const Tile& t, int nk, float scale,
       s = acc * scale;
     }
     t.S[(size_t)r * t.kcap + j] = s;
+    if (raw != nullptr) raw[(size_t)r * raw_ld + j] = s;
   }
   __syncthreads();
   // per-row running max / sum update

@@ -13,7 +13,8 @@ paging internals.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import paged_attention, prefill_attention, ref
+from repro_torch.kernels import (farview_summarize as fvs, paged_attention,
+                                prefill_attention, ref)
 
 IMPLS = ("kernel", "plain")
 _DEFAULT_IMPL = "kernel"
@@ -47,17 +48,18 @@ def pool_write_chunk(pool, vals, write_block, write_offset, n_valid):
 
 def paged_decode_attention(q, pool_k, pool_v, block_table, window_base,
                            seq_lens, slot_active, *, near_window, cur_k,
-                           cur_v, skip_extent=False, impl: str | None = None):
+                           cur_v, far_k=None, far_v=None, far_table=None,
+                           far_valid=None, skip_extent=False,
+                           impl: str | None = None):
+    """Returns (B, H, hd); with the far view (``far_*`` given) ``(out,
+    far_util)``, as ``ref.paged_decode_attention_ref``."""
     impl = impl or _DEFAULT_IMPL
-    if impl == "plain":
-        return paged_attention.plain(
-            q, pool_k, pool_v, block_table, window_base, seq_lens,
-            slot_active, near_window=near_window, cur_k=cur_k, cur_v=cur_v,
-            skip_extent=skip_extent)
-    return paged_attention.paged_decode_attention(
-        q, pool_k, pool_v, block_table, window_base, seq_lens, slot_active,
-        near_window=near_window, cur_k=cur_k, cur_v=cur_v,
-        skip_extent=skip_extent)
+    fn = (paged_attention.plain if impl == "plain"
+          else paged_attention.paged_decode_attention)
+    return fn(q, pool_k, pool_v, block_table, window_base, seq_lens,
+              slot_active, near_window=near_window, cur_k=cur_k, cur_v=cur_v,
+              far_k=far_k, far_v=far_v, far_table=far_table,
+              far_valid=far_valid, skip_extent=skip_extent)
 
 
 def chunked_prefill_attention(q, pool_k, pool_v, cur_k, cur_v, block_table,
@@ -76,3 +78,15 @@ def chunked_prefill_attention(q, pool_k, pool_v, cur_k, cur_v, block_table,
     return prefill_attention.chunked_prefill_attention(
         q, pool_k, pool_v, cur_k, cur_v, block_table, window_base, start_pos,
         n_valid, near_window=near_window, skip_extent=skip_extent)
+
+
+def farview_summarize(pool_k, pool_v, chunk_blocks, n_tokens, do_summarize,
+                      impl: str | None = None):
+    """A layer's K and V far-view summaries, ``(sk, sv)``: the mean of one
+    completed chunk per slot, zeros where gated off; one kernel launch."""
+    impl = impl or _DEFAULT_IMPL
+    if impl == "plain":
+        return (fvs.plain(pool_k, chunk_blocks, n_tokens, do_summarize),
+                fvs.plain(pool_v, chunk_blocks, n_tokens, do_summarize))
+    return fvs.farview_summarize(pool_k, pool_v, chunk_blocks, n_tokens,
+                                 do_summarize)

@@ -97,18 +97,26 @@ def pool_write_chunk_ref(pool, vals, write_block, write_offset, n_valid):
 
 
 # ---------------------------------------------------------------------------
-# paged decode attention (near window + current token) — GQA
+# paged decode attention (near window + current token + far view) — GQA
 # ---------------------------------------------------------------------------
 
 def paged_decode_attention_ref(q, pool_k, pool_v, block_table, window_base,
                                seq_lens, slot_active, *, near_window: int,
-                               cur_k=None, cur_v=None,
-                               skip_extent: bool = False) -> torch.Tensor:
+                               cur_k=None, cur_v=None, far_k=None, far_v=None,
+                               far_table=None, far_valid=None,
+                               skip_extent: bool = False):
     """q: (B, H, hd); pool_k/pool_v: (P, BT, KV, hd) (pre-write: the pool is
     read-only inside the layer loop); block_table: (B, NB); window_base,
     seq_lens (position of the CURRENT token), slot_active: (B,);
     cur_k/cur_v: (B, KV, hd) the current token, attended explicitly.
-    Returns (B, H, hd); retired slots are zero."""
+
+    Far view (``mode="full"``): far_k/far_v (B, MAXC, KV, hd) summary pools,
+    far_table/far_valid (B, CAP). The CAP selected summaries join the same
+    softmax as the near window and the current token.
+
+    Returns (B, H, hd) without the far view; with it ``(out, far_util)``,
+    far_util (B, CAP) f32 being each far entry's normalised probability
+    summed over all H query heads. Retired slots are zero."""
     B, H, hd = q.shape
     P, BT, KV, _ = pool_k.shape
     NB = block_table.shape[1]
@@ -143,7 +151,18 @@ def paged_decode_attention_ref(q, pool_k, pool_v, block_table, window_base,
                              cur_k.to(q.dtype).float())[..., None] * scale
         s_cur = s_cur.masked_fill(~(slot_active > 0)[:, None, None, None],
                                   -math.inf)
-        s_all = torch.cat([s_near, s_cur], dim=-1)
+        s_near = torch.cat([s_near, s_cur], dim=-1)
+
+    CAP = 0
+    if far_k is not None:
+        CAP = far_table.shape[1]
+        idx = far_table.long()[:, :, None, None].expand(B, CAP, KV, hd)
+        fk = torch.gather(far_k, 1, idx)
+        fv = torch.gather(far_v, 1, idx)
+        s_far = torch.einsum("bkrd,bckd->bkrc", qg, fk.float()) * scale
+        fmask = (far_valid > 0) & (slot_active > 0)[:, None]
+        s_far = s_far.masked_fill(~fmask[:, None, None, :], -math.inf)
+        s_all = torch.cat([s_far, s_near], dim=-1)
     else:
         s_all = s_near
 
@@ -154,6 +173,7 @@ def paged_decode_attention_ref(q, pool_k, pool_v, block_table, window_base,
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
     p = p / denom
 
+    p_far, p = p[..., :CAP], p[..., CAP:]
     if cur_k is not None:
         p_win, p_cur = p[..., :-1], p[..., -1]
         ctx = torch.einsum("bkrw,bwkd->bkrd",
@@ -162,9 +182,15 @@ def paged_decode_attention_ref(q, pool_k, pool_v, block_table, window_base,
     else:
         ctx = torch.einsum("bkrw,bwkd->bkrd", p.to(win_v.dtype).float(),
                            win_v.float())
+    if CAP:
+        ctx = ctx + torch.einsum("bkrc,bckd->bkrd",
+                                 p_far.to(fv.dtype).float(), fv.float())
     out = ctx.reshape(B, H, hd).to(q.dtype)
-    return torch.where((slot_active > 0)[:, None, None], out,
-                       torch.zeros_like(out))
+    out = torch.where((slot_active > 0)[:, None, None], out,
+                      torch.zeros_like(out))
+    if far_k is None:
+        return out
+    return out, p_far.sum(dim=(1, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -248,3 +274,27 @@ def chunked_prefill_attention_ref(q, pool_k, pool_v, cur_k, cur_v,
         q[None], pool_k, pool_v, cur_k[None], cur_v[None], block_table[None],
         as1(window_base), as1(start_pos), as1(n_valid),
         near_window=near_window, skip_extent=skip_extent)[0]
+
+
+# ---------------------------------------------------------------------------
+# far-view summarization (uniform aggregation over one sv_chunk)
+# ---------------------------------------------------------------------------
+
+def farview_summarize_ref(pool, chunk_blocks, n_tokens, do_summarize):
+    """Mean-pool one completed chunk per slot.
+
+    pool: (P, BT, ...payload); chunk_blocks: (B, CB) block ids of the chunk;
+    n_tokens: (B,) valid token count (normally sv_chunk); do_summarize: (B,)
+    0/1 gate. Returns (B, ...payload) f32 means cast to the pool's dtype
+    (zeros where gated off)."""
+    B, CB = chunk_blocks.shape
+    BT = pool.shape[1]
+    ones = (1,) * (pool.dim() - 2)
+    toks = pool[chunk_blocks.long()].reshape(B, CB * BT, *pool.shape[2:])
+    toks = toks.float()
+    idx = torch.arange(CB * BT, device=pool.device)
+    mask = (idx[None, :] < n_tokens.long()[:, None]).float()
+    s = (toks * mask.reshape(B, CB * BT, *ones)).sum(dim=1)
+    s = s / torch.clamp(n_tokens.long(), min=1).float().reshape(B, *ones)
+    gate = (do_summarize > 0).reshape(B, *ones)
+    return torch.where(gate, s, torch.zeros_like(s)).to(pool.dtype)

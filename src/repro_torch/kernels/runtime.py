@@ -35,6 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = {
     "paged_decode": "paged_decode.cu",
     "chunked_prefill": "chunked_prefill.cu",
+    "farview_summarize": "farview_summarize.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -8,9 +8,10 @@ Counterpart of ``repro/launch/serve.py`` for the flags the port has:
         --n-layers 8 --requests 16 --max-seq 1024 --near-window 512 \\
         --block-tokens 16 --prefill-chunk 64
 
-``--full-width`` serves the architecture's published widths (random
-weights from ``--seed``), cut in depth to ``--n-layers``; without it the
-reduced config runs. ``--device cpu`` runs the plain PyTorch path on the
+``--mode full`` adds the far view (``EngineConfig.farview_cap`` and
+``sv_chunk`` at their defaults). ``--full-width`` serves the
+architecture's published widths (random weights from ``--seed``), cut in
+depth to ``--n-layers``; without it the reduced config runs. ``--device cpu`` runs the plain PyTorch path on the
 CPU. ``--prompt-len LO:HI`` / ``--gen-len LO:HI`` replace the mixed
 workload's lengths with uniform draws from a seeded numpy generator.
 """
@@ -111,7 +112,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-32b")
     ap.add_argument("--mode", default="paged_merge",
-                    choices=["arena", "paged", "paged_merge"])
+                    choices=["arena", "paged", "paged_merge", "full"],
+                    help="'full' adds the bounded far view (summaries of "
+                         "completed sv_chunks; prompts then ride the decode "
+                         "step)")
     ap.add_argument("--workload", default="mixed", choices=["mixed"])
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--batch", type=int, default=8)

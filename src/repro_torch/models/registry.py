@@ -53,15 +53,22 @@ def _check_kv_dtype(kv_dtype: str) -> None:
 
 
 def decode_pool_shapes(cfg: ModelConfig, *, batch: int, num_blocks: int,
-                       block_tokens: int, kv_dtype: str = "bf16"
+                       block_tokens: int, max_chunks: int = 0,
+                       kv_dtype: str = "bf16"
                        ) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """name -> (shape, dtype) of every decode-state buffer. Block 0 is
-    scratch (never allocated by the pager)."""
+    scratch (never allocated by the pager). ``max_chunks > 0`` adds the
+    far-view summary pools far_k/far_v: (L, B, max_chunks, KV, hd)."""
     _module(cfg)
     _check_kv_dtype(kv_dtype)
-    shape = (cfg.n_layers, num_blocks, block_tokens, cfg.n_kv_heads,
-             cfg.head_dim)
-    return {"k": (shape, cm.DTYPE), "v": (shape, cm.DTYPE)}
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    shape = (L, num_blocks, block_tokens, KV, hd)
+    shapes = {"k": (shape, cm.DTYPE), "v": (shape, cm.DTYPE)}
+    if max_chunks:
+        far = (L, batch, max_chunks, KV, hd)
+        shapes["far_k"] = (far, cm.DTYPE)
+        shapes["far_v"] = (far, cm.DTYPE)
+    return shapes
 
 
 def init_decode_pools(cfg: ModelConfig, *, device, **kw):

@@ -7,6 +7,8 @@ the per-slot chunk kernel over the slots becomes one batched launch. As in
 the reference, the KV pools are READ-ONLY inside the layer loop: each
 layer's new K/V is attended explicitly (``cur_k``/``cur_v``) and the whole
 step's K/V is scattered into the pools once after the loop (in place).
+In ``mode="full"`` each layer first summarizes a completed far-view chunk
+into its far pools (in place, gated per slot) and attends the far view.
 """
 from __future__ import annotations
 
@@ -114,22 +116,48 @@ def decode_step(params, cfg: ModelConfig, tokens, pools, descr):
     """One fixed-shape decode step under the KV-RM contract.
 
     tokens: (B,) int32 current tokens. pools: dict with k, v:
-    (L, P, BT, KV, hd). descr: FrameDescriptor of int32 tensors. Returns
-    (logits (B, V), pools) — the pools updated in place."""
+    (L, P, BT, KV, hd); with the far view (``mode="full"``) also far_k,
+    far_v: (L, B, MAXC, KV, hd). descr: FrameDescriptor of int32 tensors.
+    Returns (logits (B, V), pools, far_util) — the pools updated in place;
+    far_util (B, CAP) f32 is the far entries' attention mass averaged over
+    layers, None without the far view."""
     B = tokens.shape[0]
     sv = cfg.serving
+    farview = "far_k" in pools
     x = params["embed"][tokens.long()]                          # (B, d)
+    if farview:
+        rows = torch.arange(B, device=x.device)
+        widx = descr.far_write_idx.long()
+        gate = (descr.far_do_summarize > 0)[:, None, None]
     ks, vs = [], []
+    fu = None
     for li, layer in enumerate(params["layers"]):
         h = cm.rmsnorm(layer["ln1"], x, cfg.norm_eps)
         q, k, v = cm.gqa_qkv(layer["attn"], cfg, h[:, None, :],
                              descr.seq_lens[:, None])
         q, k, v = (t[:, 0].contiguous() for t in (q, k, v))   # (B,H,hd)/(B,KV,hd)
+        far = {}
+        if farview:
+            # summarize the chunk that completed this step (gated inside the
+            # kernel) from the pools as they were before this step's write:
+            # the host TRIMmed its blocks in this step's frame, and a later
+            # slot may have RESERVED one of them for the post-loop write
+            fk, fv = pools["far_k"][li], pools["far_v"][li]
+            sk, svv = ops.farview_summarize(
+                pools["k"][li], pools["v"][li], descr.far_chunk_blocks,
+                descr.far_chunk_tokens, descr.far_do_summarize)
+            fk[rows, widx] = torch.where(gate, sk, fk[rows, widx])
+            fv[rows, widx] = torch.where(gate, svv, fv[rows, widx])
+            far = dict(far_k=fk, far_v=fv, far_table=descr.far_table,
+                       far_valid=descr.far_valid)
         o = ops.paged_decode_attention(
             q, pools["k"][li], pools["v"][li], descr.block_table,
             descr.window_base, descr.seq_lens, descr.slot_active,
             near_window=sv.near_window, cur_k=k, cur_v=v,
-            skip_extent=sv.skip_extent)
+            skip_extent=sv.skip_extent, **far)
+        if farview:
+            o, futil = o
+            fu = futil if fu is None else fu + futil
         x = x + cm.dense(layer["attn"]["wo"], o.reshape(B, -1))
         h = cm.rmsnorm(layer["ln2"], x, cfg.norm_eps)
         x = x + cm.mlp_apply(layer["mlp"], h, cfg.mlp_act)
@@ -140,4 +168,6 @@ def decode_step(params, cfg: ModelConfig, tokens, pools, descr):
     ops.pool_write_stacked(pools["v"], torch.stack(vs), descr.write_block,
                            descr.write_offset, descr.slot_active)
     x = cm.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return logits_head(params, cfg, x), pools
+    if fu is not None:
+        fu = fu / cfg.n_layers
+    return logits_head(params, cfg, x), pools, fu

@@ -274,3 +274,159 @@ def test_kernel_wrappers_reject_operands_the_kernels_do_not_take(case):
     # the untouched operands pass
     pa._check(*[t[k] for k in DEC_ARGS + ("cur_k", "cur_v")])
     pfa._check(*[tc[k] for k in CHUNK_ARGS])
+
+
+# ---------------------------------------------------------------------------
+# far view (mode="full"): chunk summarization and far-view decode attention
+# ---------------------------------------------------------------------------
+
+from repro.kernels.farview_summarize import farview_summarize_pallas  # noqa: E402
+from repro_torch.kernels import farview_summarize as fvs  # noqa: E402
+
+
+def _bf16_ulp(mag):
+    return np.where(mag > 0, 2.0 ** (np.floor(np.log2(np.maximum(mag, 1e-30)))
+                                     - 7), 0.0)
+
+
+def _summarize_case(seed, payload, dtype):
+    """The reference test's geometry (P 12, BT 8, B 3, CB 2): a full chunk,
+    a partial one (12 of 16 rows) and a gated-off slot."""
+    rng = np.random.default_rng(seed)
+    pool = rng.standard_normal((12, 8) + payload).astype(np.float32)
+    jp, tp = _pair(pool, dtype)
+    j, t = {"pool": jp}, {"pool": tp}
+    for k, v in dict(chunk_blocks=np.array([[1, 2], [3, 4], [5, 6]], np.int32),
+                     n_tokens=np.array([16, 12, 16], np.int32),
+                     do_summarize=np.array([1, 1, 0], np.int32)).items():
+        j[k], t[k] = _pair(v)
+    return j, t
+
+
+SUM_ARGS = ("pool", "chunk_blocks", "n_tokens", "do_summarize")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("payload", [(4, 16), (64,), (2, 8, 4)],
+                         ids=["4x16", "64", "2x8x4"])
+def test_farview_summarize_plain_matches_ref_and_pallas(dtype, payload):
+    """f32: within 1e-6 (summation order only); bf16: within one bf16 ulp
+    of the value (an f32 sum in another order can round to the neighbour)."""
+    j, t = _summarize_case(9, payload, dtype)
+    meta = [t[k] for k in SUM_ARGS[1:]]
+    got, got_v = fvs.farview_summarize(t["pool"], t["pool"] * 2, *meta)
+    assert got.dtype == TDT[dtype] and got.shape == (3,) + payload
+    for want in (jref.farview_summarize_ref(*[j[k] for k in SUM_ARGS]),
+                 farview_summarize_pallas(*[j[k] for k in SUM_ARGS],
+                                          interpret=True)):
+        g, w = _f32(got), _f32(want)
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, atol=1e-6, rtol=0)
+        else:
+            diff = np.abs(g - w)
+            assert (diff <= _bf16_ulp(np.maximum(np.abs(g), np.abs(w)))).all()
+    assert not _f32(got)[2].any()                         # gated off -> 0
+    assert torch.equal(got_v, fvs.plain(t["pool"] * 2, *meta))
+
+
+def _far_case(seed, *, B, KV, hd, MAXC, CAP, dtype):
+    """Far pools and a far table with distinct entries per slot; slot 1
+    has every entry invalid, slot 2 some."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    tbl = np.stack([rng.permutation(MAXC)[:CAP] for _ in range(B)]).astype(
+        np.int32)
+    val = np.ones((B, CAP), np.int32)
+    val[1] = 0
+    val[2, ::2] = 0
+    j, t = {}, {}
+    for k, v in dict(far_k=f(B, MAXC, KV, hd), far_v=f(B, MAXC, KV, hd)).items():
+        j[k], t[k] = _pair(v, dtype)
+    for k, v in dict(far_table=tbl, far_valid=val).items():
+        j[k], t[k] = _pair(v)
+    return j, t
+
+
+FAR_ARGS = ("far_k", "far_v", "far_table", "far_valid")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("skip", [True, False])
+@pytest.mark.parametrize("shape", DEC_SHAPES, ids=["parity", "n_rep5"])
+def test_decode_with_far_view_matches_ref(dtype, skip, shape):
+    """out and far_util against ``ref.paged_decode_attention_ref`` with the
+    current token and the far view: 1e-5 in f32 (summation order only),
+    the bf16 tolerance above in bf16."""
+    j, t, W = _decode_case(10, dtype=dtype, **shape)
+    jf, tf = _far_case(11, B=shape["B"], KV=shape["KV"], hd=shape["hd"],
+                       MAXC=7, CAP=5, dtype=dtype)
+    want, want_u = jref.paged_decode_attention_ref(
+        *[j[k] for k in DEC_ARGS], near_window=W, cur_k=j["cur_k"],
+        cur_v=j["cur_v"], skip_extent=skip, **{k: jf[k] for k in FAR_ARGS})
+    got, got_u = pa.paged_decode_attention(
+        *[t[k] for k in DEC_ARGS], near_window=W, cur_k=t["cur_k"],
+        cur_v=t["cur_v"], skip_extent=skip, **{k: tf[k] for k in FAR_ARGS})
+    tol = 1e-5 if dtype == "float32" else TOL[dtype]
+    assert got.dtype == TDT[dtype] and got_u.dtype == torch.float32
+    assert got_u.shape == (shape["B"], 5)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_f32(got_u), _f32(want_u), atol=tol, rtol=tol)
+    u = _f32(got_u)
+    assert not u[1].any() and not u[2, ::2].any()        # masked entries
+    assert not u[-1].any() and not _f32(got)[-1].any()   # retired slot
+    assert u[0].sum() > 0
+    # all far entries masked: the output without the far view (bitwise in
+    # the kernel, checked on the card; here within summation order)
+    tf["far_valid"] = torch.zeros_like(tf["far_valid"])
+    none, u0 = pa.paged_decode_attention(
+        *[t[k] for k in DEC_ARGS], near_window=W, cur_k=t["cur_k"],
+        cur_v=t["cur_v"], skip_extent=skip, **{k: tf[k] for k in FAR_ARGS})
+    base = pa.paged_decode_attention(
+        *[t[k] for k in DEC_ARGS], near_window=W, cur_k=t["cur_k"],
+        cur_v=t["cur_v"], skip_extent=skip)
+    np.testing.assert_allclose(_f32(none), _f32(base), atol=tol, rtol=tol)
+    assert not u0.any()
+
+
+@pytest.mark.parametrize("case", ["missing", "table_dtype", "far_shape",
+                                  "valid_shape"])
+def test_far_operands_the_kernels_do_not_take_are_rejected(case):
+    j, t, W = _decode_case(12, dtype="bfloat16", **DEC_SHAPES[0])
+    jf, tf = _far_case(13, B=4, KV=2, hd=16, MAXC=6, CAP=3, dtype="bfloat16")
+    d = [t[k] for k in DEC_ARGS + ("cur_k", "cur_v")]
+    far = {k: tf[k] for k in FAR_ARGS}
+    pa._check(*d, **far)                                  # as built: fine
+    if case == "missing":
+        far["far_v"] = None
+    elif case == "table_dtype":
+        far["far_table"] = far["far_table"].long()
+    elif case == "far_shape":
+        far["far_k"] = far["far_k"][:, :, :1].contiguous()
+    elif case == "valid_shape":
+        far["far_valid"] = far["far_valid"][:, :2].contiguous()
+    with pytest.raises((TypeError, ValueError)):
+        pa._check(*d, **far)
+    j, t = _summarize_case(14, (4, 16), "bfloat16")
+    s = [t[k] for k in SUM_ARGS]
+    fvs._check(s[0], s[0], *s[1:])
+    with pytest.raises((TypeError, ValueError)):
+        fvs._check(s[0], s[0].float(), *s[1:])
+    with pytest.raises((TypeError, ValueError)):
+        fvs._check(s[0], s[0], s[1].long(), *s[2:])
+
+
+def test_ops_dispatch_far_view_plain_and_kernel_agree_on_cpu():
+    j, t, W = _decode_case(15, dtype="bfloat16", **DEC_SHAPES[0])
+    jf, tf = _far_case(16, B=4, KV=2, hd=16, MAXC=6, CAP=3, dtype="bfloat16")
+    kw = dict(near_window=W, cur_k=t["cur_k"], cur_v=t["cur_v"],
+              skip_extent=True, **{k: tf[k] for k in FAR_ARGS})
+    a, au = ops.paged_decode_attention(*[t[k] for k in DEC_ARGS],
+                                       impl="kernel", **kw)
+    b, bu = ops.paged_decode_attention(*[t[k] for k in DEC_ARGS],
+                                       impl="plain", **kw)
+    assert torch.equal(a, b) and torch.equal(au, bu)
+    j, t = _summarize_case(17, (2, 8, 4), "bfloat16")
+    s = [t[k] for k in SUM_ARGS]
+    ka, kb = ops.farview_summarize(s[0], -s[0], *s[1:], impl="kernel")
+    pa_, pb = ops.farview_summarize(s[0], -s[0], *s[1:], impl="plain")
+    assert torch.equal(ka, pa_) and torch.equal(kb, pb)

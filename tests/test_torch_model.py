@@ -148,8 +148,8 @@ def test_decode_step_logits_and_pools(models, skip):
     jpools, tpools = _pools(1, jcfg)
     jlog, jpools, _ = jreg.decode_step(jparams, jcfg, jnp.asarray(tokens),
                                        jpools, jd)
-    tlog, tpools = treg.decode_step(tparams, tcfg, torch.from_numpy(tokens),
-                                    tpools, td)
+    tlog, tpools, _ = treg.decode_step(tparams, tcfg,
+                                       torch.from_numpy(tokens), tpools, td)
     assert tlog.shape == (B, tcfg.vocab_size) and tlog.dtype == torch.bfloat16
     np.testing.assert_allclose(_f32(tlog), _f32(jlog), atol=LOGIT_ATOL,
                                rtol=0)
