@@ -42,6 +42,18 @@ Phases, in order; any failure raises and the script exits non-zero:
              plain top-2 margin is below ``TIE_MARGIN_FULL``), each slot's
              far utility per step agrees while its request's inputs are
              identical, and the far tables equal the CPU run's.
+8. serve_encdec — seamless-m4t-medium at its published widths and full
+             depth (12 encoder + 12 decoder layers), paged_merge: 16
+             requests of S_enc 64-1000 frames, decoder prompts 4-32 and
+             generations 16-128; every request finishes, one commit per
+             step, no leaked block, the dense prefill kernel launched
+             admissions x 12 times and the decode kernel steps x 12.
+9. parity_encdec — the serve_encdec trace at full width with 2 + 2
+             layers, through the kernels and through the plain versions:
+             encoder outputs and the cross pools within ``ENC_ULPS``,
+             logits within ``LOGIT_TOL`` on identical inputs, streams part
+             only below ``TIE_MARGIN_ENCDEC``; steps, frames and pager
+             stats equal a CPU run of the reduced config.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -69,6 +81,7 @@ SPIN_CYCLES = 200_000_000
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 ARCH = "qwen2.5-32b"
+ENCDEC = "seamless-m4t-medium"
 SERVE = dict(batch=8, max_seq=1024, near_window=512, block_tokens=16,
              prefill_chunk=64, requests=16, prompt_len=(32, 600),
              gen_len=(16, 128), seed=0)
@@ -77,6 +90,13 @@ TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2),
 # mode="full": the serve trace with a 256-token near window (sv_chunk 64 and
 # farview_cap 16 are EngineConfig's defaults)
 SERVE_FULL = dict(SERVE, near_window=256)
+# seamless-m4t-medium: speech-to-text translation, one utterance of S_enc
+# frames encoded once per request, a short target-language prefix and a
+# sentence-length output; prompts ride the decode step (no chunked prefill
+# for encdec)
+SERVE_ENCDEC = dict(batch=8, max_seq=1024, near_window=512, block_tokens=16,
+                    requests=16, enc_len=(64, 1000), prompt_len=(4, 32),
+                    gen_len=(16, 128), seed=0)
 # summaries: one bf16 ulp, or a 64-term f32 sum taken in another order
 SUM_TOL = {"float32": 1e-5}
 # far_util (f32 sums of probabilities the kernel and the plain version
@@ -98,6 +118,15 @@ TIE_MARGIN_FULL = 0.125
 # passed through attention outputs that differ within the kernel tolerance
 # (1.8e-4 measured on an H100)
 FAR_UTIL_STEP_TOL = 1e-2
+# encdec, kernel vs plain path: the kernel keeps the encoder's attention
+# scores in f32 where the plain version rounds them (and p) to bf16, so
+# each encoder layer's output may round a few ulps apart and the cross K/V
+# carry those roundings. Held in bf16 ulps of each token row's scale (max
+# |x| over d_model, or over all heads of K or V)
+ENC_ULPS = 8
+# decoder logits on identical decoder inputs differ through those cross
+# K/V; streams may part where the plain top-2 margin is below this
+TIE_MARGIN_ENCDEC = 0.125
 
 
 def log(*a):
@@ -498,6 +527,66 @@ def mean_summarize(torch, d):
     return lambda: (torch.mean(gk, dim=1), torch.mean(gv, dim=1))
 
 
+def dense_inputs(torch, dev, dtype, *, B, S, H, KV, hd, seed, **_):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g).to(dtype).to(dev)
+    return dict(q=rn(B, S, H, hd), k=rn(B, S, KV, hd), v=rn(B, S, KV, hd))
+
+
+def check_dense(torch, pfa, dev, dtype, shape, seed):
+    """The dense prefill kernel against its plain version; two runs
+    bitwise equal."""
+    d = dense_inputs(torch, dev, dtype, seed=seed, **shape)
+    kw = dict(causal=shape["causal"], window=shape["window"])
+    got = pfa.prefill_attention(d["q"], d["k"], d["v"], **kw)
+    again = pfa.prefill_attention(d["q"], d["k"], d["v"], **kw)
+    want = pfa.prefill_plain(d["q"], d["k"], d["v"], **kw)
+    torch.cuda.synchronize()
+    tag = f"({dtype}, {shape})"
+    if not torch.equal(got, again):
+        raise AssertionError(f"prefill_flash: two runs differ {tag}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"prefill_flash: non-finite output {tag}")
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), **TOL[str(dtype)[6:]]):
+        raise AssertionError(f"prefill_flash vs plain: max abs err {err} "
+                             f"{tag}")
+    return d, err
+
+
+def dense_work(d, causal, window, elem):
+    """q, k, v read once and the output written once; QK and PV flops over
+    the (query, key) pairs the masks leave."""
+    B, S, H, hd = d["q"].shape
+    KV = d["k"].shape[2]
+    byts = 2 * B * S * H * hd * elem + 2 * B * S * KV * hd * elem
+    pairs = 0
+    for i in range(S):
+        hi = i + 1 if causal else S
+        lo = max(0, i - window + 1) if window else 0
+        pairs += max(0, hi - lo)
+    return byts, 4 * B * H * hd * pairs
+
+
+def sdpa_dense(torch, d, causal, window):
+    """One library call on the same q, k, v (k/v repeated per query head
+    beforehand; a boolean mask for the window)."""
+    import torch.nn.functional as F
+    H, KV = d["q"].shape[2], d["k"].shape[2]
+    q = d["q"].permute(0, 2, 1, 3).contiguous()
+    k = d["k"].permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+    v = d["v"].permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+    if not window:
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+    S = q.shape[2]
+    i = torch.arange(S, device=q.device)
+    m = i[None, :] > i[:, None] - window
+    if causal:
+        m &= i[None, :] <= i[:, None]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import farview_summarize as fvs
     from repro_torch.kernels import paged_attention as pa
@@ -511,6 +600,24 @@ def phase_kernels(torch):
         "full": dict(B=8, H=40, KV=8, hd=128, BT=16, NB=33, P=521,
                      seq_lens=[0, 37, 300, 511, 512, 700, 1000, 64],
                      active=[1, 1, 1, 1, 1, 1, 0, 0]),
+        # seamless-m4t-medium's decoder in serve_encdec: hd 64, n_rep 1,
+        # the same pool; decoder sequences reach 32 + 128 tokens
+        "encdec": dict(B=8, H=16, KV=16, hd=64, BT=16, NB=33, P=521,
+                       seq_lens=[0, 5, 31, 64, 100, 130, 159, 20],
+                       active=[1, 1, 1, 1, 1, 1, 1, 0]),
+    }
+    # the dense prefill kernel: the encoder's shape (seamless-m4t-medium, the
+    # longest utterance of serve_encdec), qwen2.5-32b width with GQA, causal
+    # and a window, and small ragged shapes (n_rep 2, masks either way)
+    dense_shapes = {
+        "encoder": dict(B=1, S=1000, H=16, KV=16, hd=64, causal=False,
+                        window=None),
+        "gqa": dict(B=1, S=1024, H=40, KV=8, hd=128, causal=True,
+                    window=512),
+        "parity_causal": dict(B=2, S=37, H=4, KV=2, hd=16, causal=True,
+                              window=5),
+        "parity_window": dict(B=2, S=37, H=4, KV=2, hd=16, causal=False,
+                              window=7),
     }
     chk_shapes = {
         "parity": dict(B=4, C=8, H=4, KV=2, hd=16, BT=8, NB=3, P=40,
@@ -536,9 +643,10 @@ def phase_kernels(torch):
     }
     res = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for name, shp in dec_shapes.items():
+        for name, far_shp in far_shapes.items():
+            shp = dec_shapes[name]
             d, f, W, err = check_decode_far(torch, pa, dev, dtype, shp,
-                                            far_shapes[name], seed=3)
+                                            far_shp, seed=3)
             log(f"paged_decode far view {name} {dtype}: max_abs_err "
                 f"{err:.3e}; skip on == off, run == run, all-masked far "
                 f"view == none, bitwise")
@@ -553,30 +661,40 @@ def phase_kernels(torch):
             d, W, err = check_decode(torch, pa, dev, dtype, shp, seed=1)
             log(f"paged_decode {name} {dtype}: max_abs_err {err:.3e}; "
                 f"skip on == off bitwise")
-            if name == "full" and dtype == torch.bfloat16:
-                res["paged_decode"] = (d, W, err, shp["BT"])
+            if name in ("full", "encdec") and dtype == torch.bfloat16:
+                key = "paged_decode" + ("_encdec" if name == "encdec" else "")
+                res[key] = (d, W, err, shp["BT"])
         for name, shp in chk_shapes.items():
             d, W, err = check_chunk(torch, pfa, dev, dtype, shp, seed=2)
             log(f"chunked_prefill {name} {dtype}: max_abs_err {err:.3e}; "
                 f"skip on == off bitwise")
             if name == "full" and dtype == torch.bfloat16:
                 res["chunked_prefill"] = (d, W, err, shp["BT"])
+        for name, shp in dense_shapes.items():
+            d, err = check_dense(torch, pfa, dev, dtype, shp, seed=5)
+            log(f"prefill_flash {name} {dtype}: max_abs_err {err:.3e}; run "
+                f"== run bitwise")
+            if name in ("encoder", "gqa") and dtype == torch.bfloat16:
+                key = "prefill_flash" + ("_gqa" if name == "gqa" else "")
+                res[key] = (d, shp, err)
 
     rows = {}
-    d, W, err, BT = res["paged_decode"]
-    args = [d[k] for k in ("q", "pool_k", "pool_v", "block_table",
-                           "window_base", "seq_lens", "slot_active")]
-    kw = dict(near_window=W, cur_k=d["cur_k"], cur_v=d["cur_v"],
-              skip_extent=True)
-    byts, flops = decode_work(d, W, BT, 2)
-    rows["paged_decode"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
-        replaces="src/repro/kernels/paged_attention.py:80",
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: pa.paged_decode_attention(*args, **kw)),
-        plain_ms=time_ms(torch, lambda: pa.plain(*args, **kw)),
-        library_ms=time_ms(torch, sdpa_decode(torch, d, W)),
-        **bound(byts, flops, "bfloat16"))
+    for key in ("paged_decode", "paged_decode_encdec"):
+        d, W, err, BT = res[key]
+        args = [d[k] for k in ("q", "pool_k", "pool_v", "block_table",
+                               "window_base", "seq_lens", "slot_active")]
+        kw = dict(near_window=W, cur_k=d["cur_k"], cur_v=d["cur_v"],
+                  skip_extent=True)
+        byts, flops = decode_work(d, W, BT, 2)
+        rows[key] = dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_decode.cu",
+            replaces="src/repro/kernels/paged_attention.py:80",
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: pa.paged_decode_attention(*args, **kw)),
+            plain_ms=time_ms(torch, lambda: pa.plain(*args, **kw)),
+            library_ms=time_ms(torch, sdpa_decode(torch, d, W)),
+            **bound(byts, flops, "bfloat16"))
     d, W, err, BT = res["chunked_prefill"]
     args = [d[k] for k in ("q", "pool_k", "pool_v", "cur_k", "cur_v",
                            "block_table", "window_base", "start_pos",
@@ -620,6 +738,21 @@ def phase_kernels(torch):
                                          fvs.plain(d["pool_v"], *meta))),
         library_ms=time_ms(torch, mean_summarize(torch, d)),
         **bound(byts, flops, "float32"))
+    for key in ("prefill_flash", "prefill_flash_gqa"):
+        d, shp, err = res[key]
+        kw = dict(causal=shp["causal"], window=shp["window"])
+        byts, flops = dense_work(d, elem=2, **kw)
+        rows[key] = dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/prefill_flash.cu",
+            replaces="src/repro/kernels/prefill_attention.py:35",
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: pfa.prefill_attention(
+                d["q"], d["k"], d["v"], **kw)),
+            plain_ms=time_ms(torch, lambda: pfa.prefill_plain(
+                d["q"], d["k"], d["v"], **kw)),
+            library_ms=time_ms(torch, sdpa_dense(torch, d, **kw)),
+            **bound(byts, flops, "bfloat16"))
     for k, r in rows.items():
         log(f"{k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
             f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by "
@@ -685,7 +818,8 @@ def phase_serve(torch, n_layers, device="cuda", full_width=True):
     lat = out["latency"]
     summary = dict(
         tokens_s=out["throughput_tok_s"], wall_tok_s=out["wall_tok_s"],
-        step_p50_ms=lat["p50_ms"], step_p99_ms=lat["p99_ms"],
+        step_p50_ms=lat["p50_ms"], step_p95_ms=lat["p95_ms"],
+        step_p99_ms=lat["p99_ms"],
         steps=eng.steps_run, chunk_dispatches=eng._chunk_dispatches,
         tokens=out["tokens"], n_layers=L,
         peak_reserved_kv_bytes=a["peak_reserved_kv"],
@@ -887,28 +1021,264 @@ def phase_parity(torch, mode="paged_merge", n_layers=2, device="cuda",
     return out
 
 
-def phase_profile(torch, n_layers, out_path=None):
-    """torch.profiler over the serve phase's trace, every step after the
-    first (warm-up) until the engine drains: device busy share and kernel
-    time by category. Not in the default phases; ``out_path`` receives the
+# ---------------------------------------------------------------------------
+# phases 8 and 9: the encoder-decoder family
+# ---------------------------------------------------------------------------
+
+def encdec_trace(d_model, vocab):
+    """serve_encdec's requests, all from SERVE_ENCDEC's seed: the mixed
+    workload redrawn with uniform decoder prompt and generation lengths,
+    and per request S_enc uniform frame embeddings of width ``d_model``
+    (N(0, 1), as the engine's default frames)."""
+    from repro_torch.launch import serve
+    s = SERVE_ENCDEC
+    reqs = serve.make_workload(s["requests"], vocab, seed=s["seed"],
+                               prompt_len=s["prompt_len"],
+                               gen_len=s["gen_len"])
+    rng = np.random.default_rng(s["seed"])
+    lo, hi = s["enc_len"]
+    for r in reqs:
+        se = int(rng.integers(lo, hi + 1))
+        r.enc_embeds = rng.standard_normal((1, se, d_model)).astype(
+            np.float32)
+    return reqs
+
+
+def encdec_engine(cfg, params, device, **kw):
+    from repro_torch.serving.factory import build
+    s = SERVE_ENCDEC
+    return build(ENCDEC, cfg=cfg, params=params, seed=s["seed"],
+                 device=device, mode="paged_merge", batch=s["batch"],
+                 max_seq=s["max_seq"], near_window=s["near_window"],
+                 block_tokens=s["block_tokens"], **kw)[0]
+
+
+def check_encdec_launches(eng, launches):
+    """Launch counters of one run (zeroed just before it): the dense prefill
+    kernel once per encoder layer per admission, the decode kernel once per
+    decoder layer per step, no chunked prefill."""
+    a = eng.audit()
+    cfg = eng.cfg
+    assert eng.encodes_run == SERVE_ENCDEC["requests"], eng.encodes_run
+    assert launches["prefill_flash"] == eng.encodes_run * cfg.enc_layers, \
+        launches
+    assert launches["paged_decode"] == eng.steps_run * cfg.dec_layers, \
+        launches
+    assert launches["chunked_prefill"] == launches["farview_summarize"] == 0
+    assert a["prefill_kernel_launches"] == launches["prefill_flash"], a
+    assert a["decode_kernel_launches"] == launches["paged_decode"], a
+    return a
+
+
+def phase_serve_encdec(torch):
+    """seamless-m4t-medium at its published widths and full depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+    cfg = get_config(ENCDEC)
+    assert (cfg.enc_layers, cfg.dec_layers, cfg.d_model) == (12, 12, 1024)
+    params = registry.init_params(cfg, seed=SERVE_ENCDEC["seed"],
+                                  device="cuda")
+    n_params = n_elements(params)
+    eng = encdec_engine(cfg, params, "cuda")
+    reqs = encdec_trace(cfg.d_model, cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launches()
+    out = serve.run_lanes([eng], reqs)
+    torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    a, _ = check_engine(eng, SERVE_ENCDEC["requests"])
+    check_encdec_launches(eng, launches)
+    assert a["prefill_chunk"] == 0, a
+    lat = out["latency"]
+    summary = dict(
+        arch=ENCDEC, params=n_params, enc_layers=cfg.enc_layers,
+        dec_layers=cfg.dec_layers,
+        tokens_s=out["aggregate_tok_s"], wall_tok_s=out["wall_tok_s"],
+        step_p50_ms=lat["p50_ms"], step_p95_ms=lat["p95_ms"],
+        step_p99_ms=lat["p99_ms"], steps=eng.steps_run, tokens=out["tokens"],
+        encodes=eng.encodes_run,
+        enc_frames=sum(r.enc_embeds.shape[1] for r in reqs),
+        launches_prefill_flash=launches["prefill_flash"],
+        launches_paged_decode=launches["paged_decode"],
+        submit_share=a["submit_share"],
+        peak_reserved_kv_bytes=a["peak_reserved_kv"],
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        pager_stats=dict(eng.pager.stats))
+    log("serve_encdec:", json.dumps(summary))
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def n_elements(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(n_elements(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(n_elements(v) for v in tree)
+    return tree.numel()
+
+
+def max_row_ulps(torch, got, want):
+    """max over elements of |got - want| in bf16 ulps of the element's row
+    scale (max |x| over the last axis of either)."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).amax(dim=-1, keepdim=True)
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+    return float(((g - w).abs() / ulp).max())
+
+
+def phase_parity_encdec(torch, n_layers=2, device="cuda", full_width=True):
+    """The serve_encdec trace at full width, ``n_layers`` encoder and
+    decoder layers, through the kernels and through the plain versions
+    (``device="cpu"``, ``full_width=False``: a rehearsal on the CPU, where
+    both paths are the plain one)."""
+    from repro_torch.configs import get_config, get_reduced, with_depth
+    from repro_torch.kernels import ops, runtime
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec, registry
+    s = SERVE_ENCDEC
+    cfg = with_depth(get_config(ENCDEC) if full_width else get_reduced(ENCDEC),
+                     n_layers)
+    params = registry.init_params(cfg, seed=s["seed"], device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    # the encoder executor on identical inputs: each request's encoder
+    # output and cross K/V through the kernel and through the plain path
+    enc_ulps = 0.0
+    for r in encdec_trace(cfg.d_model, cfg.vocab_size):
+        e = torch.as_tensor(r.enc_embeds, device=device)
+        outs = {}
+        for impl in ("kernel", "plain"):
+            ops.set_default_impl(impl)
+            o = encdec.encode(params, cfg, e)
+            outs[impl] = (o, *encdec.cross_kv(params, cfg, o))
+        ops.set_default_impl("kernel")
+        sync()
+        for got, want in zip(outs["kernel"], outs["plain"]):
+            assert torch.isfinite(got).all()
+            if got.dim() == 5:           # cross K/V: a token's row over heads
+                got, want = got.flatten(-2), want.flatten(-2)
+            enc_ulps = max(enc_ulps, max_row_ulps(torch, got, want))
+    log(f"parity_encdec: encoder output / cross K,V kernel vs plain: "
+        f"{enc_ulps:.2f} row-scale bf16 ulps")
+    assert enc_ulps <= ENC_ULPS, (enc_ulps, ENC_ULPS)
+
+    runs = {}
+    for impl in ("kernel", "plain"):
+        ops.set_default_impl(impl)
+        runtime.reset_launches()
+        eng = encdec_engine(cfg, params, device, debug_logits=True)
+        serve.run_lanes([eng], encdec_trace(cfg.d_model, cfg.vocab_size))
+        sync()
+        check_engine(eng, s["requests"])
+        runs[impl] = (eng, dict(runtime.LAUNCHES))
+    ops.set_default_impl("kernel")
+    k_eng, k_launch = runs["kernel"]
+    p_eng, p_launch = runs["plain"]
+    if device == "cuda":
+        check_encdec_launches(k_eng, k_launch)
+    assert p_launch == {k: 0 for k in p_launch}, p_launch
+    # the same requests sit in the same slots at the end of both runs
+    assert torch.equal(k_eng.pools["enc_len"], p_eng.pools["enc_len"])
+    pool_ulps = max(max_row_ulps(torch, k_eng.pools[n].flatten(-2),
+                                 p_eng.pools[n].flatten(-2))
+                    for n in ("cross_k", "cross_v"))
+    assert pool_ulps <= ENC_ULPS, (pool_ulps, ENC_ULPS)
+
+    for eng in (k_eng, p_eng):
+        assert all(np.isfinite(lg).all() for lg in eng.debug_logits)
+    kreq = {r.rid: r for r in k_eng.sched.finished}
+    preq = {r.rid: r for r in p_eng.sched.finished}
+    first_diff, margins = [], []
+    logit_diff, n_cmp = 0.0, 0
+    for rid, kr in kreq.items():
+        pr = preq[rid]
+        toks, ptoks = list(kr.generated), list(pr.generated)
+        i = next((j for j, (a, b) in enumerate(zip(toks, ptoks)) if a != b),
+                 len(toks))
+        for j in range(min(i + 1, len(toks))):
+            logit_diff = max(logit_diff, float(np.abs(
+                kr.logit_trace[j] - pr.logit_trace[j]).max()))
+            n_cmp += 1
+        if i == len(toks):
+            continue
+        top2 = np.sort(pr.logit_trace[i])[-2:]
+        margins.append(float(top2[1] - top2[0]))
+        first_diff.append(i)
+    out = dict(steps=k_eng.steps_run, rids=len(kreq),
+               streams_identical=len(kreq) - len(first_diff),
+               first_diff_token_index=sorted(first_diff),
+               max_parting_margin=max(margins, default=None),
+               logits_compared=n_cmp, logits_max_abs_diff=logit_diff,
+               encoder_max_row_ulps=enc_ulps, cross_pool_max_row_ulps=pool_ulps)
+    log("parity_encdec:", json.dumps(out))
+    assert logit_diff < LOGIT_TOL, (
+        f"kernel vs plain logits differ by {logit_diff} on identical inputs")
+    for m in margins:
+        assert m < TIE_MARGIN_ENCDEC, (
+            f"kernel and plain streams part where the plain top-2 margin is "
+            f"{m} >= {TIE_MARGIN_ENCDEC}")
+
+    # the control plane depends on lengths only: a CPU run of the reduced
+    # config over the same lengths (prompt, generation, S_enc) must commit
+    # the same frames
+    rcfg = get_reduced(ENCDEC)
+    cpu = encdec_engine(rcfg, registry.init_params(rcfg, seed=s["seed"],
+                                                   device="cpu"), "cpu")
+    reqs = encdec_trace(rcfg.d_model, rcfg.vocab_size)
+    for r in reqs:
+        r.prompt = r.prompt % rcfg.vocab_size
+    serve.run_lanes([cpu], reqs)
+    for eng in (k_eng, p_eng):
+        assert eng.steps_run == cpu.steps_run, (eng.steps_run, cpu.steps_run)
+        assert eng.frames_committed == cpu.frames_committed
+        assert eng.pager.stats == cpu.pager.stats, (eng.pager.stats,
+                                                     cpu.pager.stats)
+        assert eng.encodes_run == cpu.encodes_run
+    out.update(pager_stats_equal_cpu=True)
+    log("parity_encdec: steps, frames and pager stats equal the CPU run")
+    del k_eng, p_eng, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_profile(torch, n_layers, out_path=None, arch=ARCH):
+    """torch.profiler over the serve phase's trace (``arch=ENCDEC``: the
+    serve_encdec trace at full depth), every step after the first
+    (warm-up) until the engine drains: device busy share and kernel time
+    by category. Not in the default phases; ``out_path`` receives the
     summary and the profiler's table of the top kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch.models import registry
     from repro_torch.serving.factory import build
-    s = SERVE
-    cfg = get_config(ARCH).replace(n_layers=n_layers)
-    eng = build(ARCH, cfg=cfg, seed=s["seed"], device="cuda", mode="paged_merge",
-                batch=s["batch"], max_seq=s["max_seq"],
-                near_window=s["near_window"], block_tokens=s["block_tokens"],
-                prefill_chunk=s["prefill_chunk"])[0]
-    for r in serve.make_workload(s["requests"], cfg.vocab_size, seed=s["seed"],
-                                 prompt_len=s["prompt_len"],
-                                 gen_len=s["gen_len"]):
+    if arch == ENCDEC:
+        cfg = get_config(ENCDEC)
+        eng = encdec_engine(cfg, registry.init_params(
+            cfg, seed=SERVE_ENCDEC["seed"], device="cuda"), "cuda")
+        reqs = encdec_trace(cfg.d_model, cfg.vocab_size)
+        n_layers = cfg.dec_layers
+    else:
+        s = SERVE
+        cfg = get_config(ARCH).replace(n_layers=n_layers)
+        eng = build(ARCH, cfg=cfg, seed=s["seed"], device="cuda",
+                    mode="paged_merge", batch=s["batch"],
+                    max_seq=s["max_seq"], near_window=s["near_window"],
+                    block_tokens=s["block_tokens"],
+                    prefill_chunk=s["prefill_chunk"])[0]
+        reqs = serve.make_workload(s["requests"], cfg.vocab_size,
+                                   seed=s["seed"], prompt_len=s["prompt_len"],
+                                   gen_len=s["gen_len"])
+    for r in reqs:
         eng.submit(r)
     eng.step()
     torch.cuda.synchronize()
-    step0, chunk0 = eng.steps_run, eng._chunk_dispatches
+    step0, chunk0, enc0 = eng.steps_run, eng._chunk_dispatches, eng.encodes_run
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         while eng.sched.waiting or eng.sched.active_slots():
@@ -928,18 +1298,23 @@ def phase_profile(torch, n_layers, out_path=None):
         n = e.name.lower()
         cat = ("paged_decode kernel" if "paged_decode" in n else
                "chunked_prefill kernel" if "chunked_prefill" in n else
+               "prefill_flash kernel (encoder)" if "prefill_flash" in n else
                "matmul (cuBLAS)" if any(k in n for k in (
                    "nvjet", "splitkreduce", "gemm", "gemv", "xmma", "cutlass"))
                else "memcpy" if "memcpy" in n else "other (elementwise etc.)")
         t, c = cats.get(cat, (0.0, 0))
         cats[cat] = (t + (e.time_range.end - e.time_range.start), c + 1)
-    out = dict(steps=eng.steps_run - step0,
+    out = dict(arch=arch, steps=eng.steps_run - step0,
                chunk_dispatches=eng._chunk_dispatches - chunk0,
+               encodes=eng.encodes_run - enc0,
                n_layers=n_layers, wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
                idle_share=1 - busy / wall_us,
                by_category_ms={k: v[0] / 1e3 for k, v in sorted(cats.items())},
                launches_by_category={k: v[1] for k, v in sorted(cats.items())})
     log("profile:", json.dumps(out))
+    if out_path and arch == ENCDEC:
+        p = Path(out_path)
+        out_path = p.with_name(f"{p.stem}_encdec{p.suffix}")
     if out_path:
         table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=40)
@@ -957,9 +1332,11 @@ def main(argv=None):
                     help="depth of the full-width serve phase (64 = all)")
     ap.add_argument("--phases",
                     default="build,kernels,serve,serve_full,parity,"
-                            "parity_full",
+                            "parity_full,serve_encdec,parity_encdec",
                     help="comma-separated subset (the device phase always "
-                         "runs); 'profile' adds a torch.profiler pass")
+                         "runs); 'profile' and 'profile_encdec' add a "
+                         "torch.profiler pass over serve's and serve_encdec's "
+                         "traces")
     ap.add_argument("--profile-out", default=None,
                     help="file for the profile phase's kernel table")
     args = ap.parse_args(argv)
@@ -1007,17 +1384,29 @@ def main(argv=None):
         missing = [k for k in ("paged_decode", "farview_summarize")
                    if lf[k] <= 0]
         assert not missing, f"kernels never launched by serve_full: {missing}"
-    if {"serve", "serve_full"} <= phases:
+    if "serve_encdec" in phases:
+        le, _ = phase_serve_encdec(torch)
+        launches["paged_decode_encdec"] = le["paged_decode"]
+        launches["prefill_flash"] = le["prefill_flash"]
+        # the same kernel at the qwen-width check shape (not on this path)
+        launches["prefill_flash_gqa"] = le["prefill_flash"]
+        missing = [k for k in ("paged_decode", "prefill_flash") if le[k] <= 0]
+        assert not missing, f"kernels never launched by serve_encdec: {missing}"
+    if {"serve", "serve_full", "serve_encdec"} <= phases:
         missing = [k for k in runtime.SOURCES
                    if not any(launches.get(r, 0) > 0
-                              for r in (k, k + "_far"))]
+                              for r in (k, k + "_far", k + "_encdec"))]
         assert not missing, f"kernels never launched on the main path: {missing}"
     if "parity" in phases:
         phase_parity(torch)
     if "parity_full" in phases:
         phase_parity(torch, mode="full")
+    if "parity_encdec" in phases:
+        phase_parity_encdec(torch)
     if "profile" in phases:
         phase_profile(torch, args.n_layers, args.profile_out)
+    if "profile_encdec" in phases:
+        phase_profile(torch, args.n_layers, args.profile_out, arch=ENCDEC)
 
     kernels = []
     for name, r in rows.items():

@@ -13,14 +13,19 @@ Counterpart of ``repro/core/engine.py`` for the main path:
     completed sv_chunks are summarized on the device and TRIMmed, and
     decode attends up to ``farview_cap`` summaries chosen by the host's
     utility EMA (``core/farview.py``). Prompts ride the decode step (the
-    chunked prefill executor is off in this mode, as in the reference).
+    chunked prefill executor is off in this mode, as in the reference);
+  * the encoder-decoder family: at each admission an encoder executor
+    encodes the request's frame embeddings (``Request.enc_embeds``, or
+    8 frames drawn from the rid) and writes the slot's immutable cross
+    K/V (DESIGN.md §4); decoder prompts ride the decode step.
 
 One step runs scheduler admission, then the pager's RESERVE/ALIAS/TRIM/
 FRAME, then the merge-staged transport, and commits ONE flat int32 buffer
 (descriptor + control rows) with ONE host->device copy; the device step
 reads it through views (``unflatten_descriptor``). The paged attention
-inside the step runs the hand-written CUDA kernels on the card
-(``kernels/csrc``); the engine counts their launches in ``audit()``.
+inside the step, and the encoder's attention, run the hand-written CUDA
+kernels on the card (``kernels/csrc``); the engine counts their launches
+in ``audit()``.
 
 Features of the reference that the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
@@ -49,7 +54,7 @@ from repro_torch.core.pager import BlockPager
 from repro_torch.core.scheduler import Request, Scheduler
 from repro_torch.core.transport import MergeStagedTransport
 from repro_torch.kernels import runtime
-from repro_torch.models import registry
+from repro_torch.models import encdec, registry
 
 MODES = ("arena", "paged", "paged_merge", "full")
 
@@ -128,8 +133,12 @@ def _farview_conflict(ecfg: EngineConfig) -> Optional[str]:
     return None
 
 
-def _not_ported(ecfg: EngineConfig) -> Optional[str]:
+def _not_ported(cfg: ModelConfig, ecfg: EngineConfig) -> Optional[str]:
     """Why this EngineConfig needs a feature the port does not have yet."""
+    if cfg.family == "encdec" and ecfg.mode == "full":
+        return ("mode='full' on the encdec family (ROADMAP queue 1, item 11: "
+                "the encdec far view; the reference's encdec decode step "
+                "never reads it)")
     if ecfg.pipeline_depth >= 1:
         return ("pipeline_depth >= 1 (ROADMAP queue 1, item 6b: pipelined "
                 "dispatch captured as a CUDA graph)")
@@ -155,7 +164,7 @@ class KVRMEngine:
         conflict = _farview_conflict(ecfg)
         if conflict is not None:
             raise ValueError(conflict)
-        why = _not_ported(ecfg)
+        why = _not_ported(cfg, ecfg)
         if why is not None:
             raise NotImplementedError(f"the PyTorch port does not have {why}")
         self.device = runtime.resolve_device(device)
@@ -190,9 +199,11 @@ class KVRMEngine:
         self.chunk_blocks = max(1, ecfg.sv_chunk // bt)
 
         # --- device state ---
+        self._encdec = cfg.family == "encdec"
         self.pools = registry.init_decode_pools(
             cfg, batch=ecfg.batch, num_blocks=self.num_blocks,
             block_tokens=bt, max_chunks=self.max_chunks,
+            enc_len=ecfg.max_seq if self._encdec else 0,
             kv_dtype=ecfg.kv_dtype, device=self.device)
 
         # --- host control plane ---
@@ -263,6 +274,8 @@ class KVRMEngine:
         self._decode_launches = 0
         self._chunk_launches = 0
         self._farview_launches = 0
+        self._prefill_launches = 0
+        self.encodes_run = 0             # encoder executor runs (admissions)
 
         # --- persistent flat commit buffer: descriptor + control rows.
         # numpy views into ONE (pinned, on the card) host buffer; one
@@ -341,12 +354,44 @@ class KVRMEngine:
                 self._rid_to_sid[req.rid] = sid
             if self.fv is not None:
                 self.fv.reset_slot(slot)
+            if self._encdec:
+                self._encode_into(slot, req)
         if self._cow_pairs_step:
             # materialize this admit round's COW tails: one batched copy
             pairs, self._cow_pairs_step = self._cow_pairs_step, []
             self._cow_origin.clear()
             self.transport.account_cow(pairs)
             self._cow_copy(pairs)
+
+    def _encode_into(self, slot: int, req: Request) -> None:
+        """Encoder executor: encode the request's frame embeddings (1,
+        S_enc, d) — without them, 8 frames drawn from the rid, as the
+        reference does — and write the cross K/V into the slot's rows of
+        the immutable cross pools, zeros past S_enc (the reference pads),
+        in place; set the slot's enc_len."""
+        enc = getattr(req, "enc_embeds", None)
+        if enc is None:
+            enc = np.random.default_rng(req.rid).normal(
+                size=(1, 8, self.cfg.d_model)).astype(np.float32)
+        enc = torch.as_tensor(enc, dtype=torch.float32, device=self.device)
+        cap = self.pools["cross_k"].shape[2]
+        if enc.dim() != 3 or enc.shape[0] != 1 or \
+                enc.shape[2] != self.cfg.d_model:
+            raise ValueError(f"enc_embeds must be (1, S_enc, "
+                             f"{self.cfg.d_model}), got {tuple(enc.shape)}")
+        se = enc.shape[1]
+        if se > cap:
+            raise ValueError(f"S_enc {se} exceeds the cross pools' "
+                             f"max_seq {cap}")
+        before = runtime.LAUNCHES["prefill_flash"]
+        ck, cv = encdec.cross_kv(self.params, self.cfg,
+                                 encdec.encode(self.params, self.cfg, enc))
+        self._prefill_launches += runtime.LAUNCHES["prefill_flash"] - before
+        for name, val in (("cross_k", ck), ("cross_v", cv)):
+            self.pools[name][:, slot, :se] = val[:, 0]
+            self.pools[name][:, slot, se:] = 0
+        self.pools["enc_len"][slot] = se
+        self.encodes_run += 1
 
     def _capture_cow(self, sid: int) -> None:
         """Queue a fresh alias's COW tail copy for this admit round (chained
@@ -708,6 +753,8 @@ class KVRMEngine:
             "decode_kernel_launches": self._decode_launches,
             "chunk_kernel_launches": self._chunk_launches,
             "farview_kernel_launches": self._farview_launches,
+            "encodes_run": self.encodes_run,
+            "prefill_kernel_launches": self._prefill_launches,
         }
 
     def reserved_kv_bytes(self) -> int:

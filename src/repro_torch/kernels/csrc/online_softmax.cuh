@@ -1,6 +1,6 @@
-// Shared pieces of the kernels: element conversion (all three), floor
+// Shared pieces of the kernels: element conversion (all four), floor
 // division, and one flash-style online-softmax step over a tile of keys held
-// in shared memory (paged_decode.cu, chunked_prefill.cu).
+// in shared memory (paged_decode.cu, chunked_prefill.cu, prefill_flash.cu).
 //
 // Every sum is f32. A key masked for a query row scores -inf and adds
 // nothing; a tile whose keys are all masked for a row leaves that row's

@@ -14,7 +14,7 @@ paging internals.
 from __future__ import annotations
 
 from repro_torch.kernels import (farview_summarize as fvs, paged_attention,
-                                prefill_attention, ref)
+                                prefill_attention as pfa, ref)
 
 IMPLS = ("kernel", "plain")
 _DEFAULT_IMPL = "kernel"
@@ -71,13 +71,24 @@ def chunked_prefill_attention(q, pool_k, pool_v, cur_k, cur_v, block_table,
     DESIGN.md §3). q: (B, C, H, hd)."""
     impl = impl or _DEFAULT_IMPL
     if impl == "plain":
-        return prefill_attention.plain(
+        return pfa.plain(
             q, pool_k, pool_v, cur_k, cur_v, block_table, window_base,
             start_pos, n_valid, near_window=near_window,
             skip_extent=skip_extent)
-    return prefill_attention.chunked_prefill_attention(
+    return pfa.chunked_prefill_attention(
         q, pool_k, pool_v, cur_k, cur_v, block_table, window_base, start_pos,
         n_valid, near_window=near_window, skip_extent=skip_extent)
+
+
+def prefill_attention(q, k, v, *, causal=True, window=None,
+                      impl: str | None = None):
+    """Dense full-sequence GQA attention (the encoder's): q (B, S, H, hd),
+    k/v (B, S, KV, hd), optional causal and window masks."""
+    impl = impl or _DEFAULT_IMPL
+    if impl == "plain":
+        pfa._check_window(window)
+        return pfa.prefill_plain(q, k, v, causal=causal, window=window)
+    return pfa.prefill_attention(q, k, v, causal=causal, window=window)
 
 
 def farview_summarize(pool_k, pool_v, chunk_blocks, n_tokens, do_summarize,

@@ -1,11 +1,19 @@
-"""Chunked paged-prefill attention: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Prefill attention: the wrappers of two CUDA kernels and their plain
+PyTorch versions.
 
-Counterpart of ``repro/kernels/prefill_attention.py`` (the Pallas
-``_chunk_kernel``). The JAX engine vmaps a per-slot kernel over the
-slots; here one launch (``csrc/chunked_prefill.cu``) covers every slot
-of the fixed-shape chunk step, and idle slots (``n_valid == 0``) write
-zeros and read nothing.
+Counterpart of ``repro/kernels/prefill_attention.py``, which holds two
+Pallas kernels:
+
+* ``_chunk_kernel`` — chunked paged-prefill attention. The JAX engine
+  vmaps a per-slot kernel over the slots; here one launch
+  (``csrc/chunked_prefill.cu``) covers every slot of the fixed-shape chunk
+  step, and idle slots (``n_valid == 0``) write zeros and read nothing.
+* ``_prefill_kernel`` — dense full-sequence GQA flash attention with
+  optional causal and window masks (``csrc/prefill_flash.cu``): the
+  encoder's attention. Its plain version is what the reference's
+  ``gqa_full`` computes (``attention_dense``, ``attention_blocked`` above
+  S 1024); the kernel keeps the scores in f32 as ``_prefill_kernel`` does,
+  where ``attention_dense`` rounds them to bf16.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises. Nothing falls back.
@@ -118,4 +126,104 @@ def chunked_prefill_attention(q, pool_k, pool_v, cur_k, cur_v, block_table,
                 runtime.stream_ptr(q.device))
     runtime.check_status(NAME, status)
     runtime.count_launch(NAME)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dense prefill attention (the encoder; `_prefill_kernel`)
+# ---------------------------------------------------------------------------
+
+FLASH = "prefill_flash"
+FLASH_BLOCK_M = 64               # query rows (token, grouped head) per block
+FLASH_KEY_TILES = (64, 32, 16)   # key tile: the largest whose smem fits
+MAX_GRID_Z = 65535
+_flash_argtypes_set = False
+
+
+def prefill_plain(q, k, v, *, causal=True, window=None):
+    """What the reference's ``gqa_full`` computes: ``attention_dense``, or
+    ``attention_blocked`` above S 1024 (as ``ops.prefill_attention`` of
+    the reference switches)."""
+    from repro_torch.models.common import attention_blocked, attention_dense
+    if q.shape[1] > 1024:
+        return attention_blocked(q, k, v, causal=causal, window=window)
+    return attention_dense(q, k, v, causal=causal, window=window)
+
+
+def _flash_lib():
+    global _flash_argtypes_set
+    lib = runtime.load(FLASH)
+    if not _flash_argtypes_set:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.prefill_flash_bf16, lib.prefill_flash_f32):
+            fn.argtypes = [P] * 4 + [I] * 7 + [ctypes.c_float, I, I, I, P]
+            fn.restype = I
+        lib.prefill_flash_smem_bytes.argtypes = [I, I, I]
+        lib.prefill_flash_smem_bytes.restype = ctypes.c_size_t
+        _flash_argtypes_set = True
+    return lib
+
+
+def _check_window(window) -> None:
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def _check_dense(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q must be (B,S,H,hd) and k/v (B,S,KV,hd); got "
+                         f"{tuple(q.shape)} / {tuple(k.shape)}")
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if tuple(k.shape) != (B, S, KV, hd) or v.shape != k.shape:
+        raise ValueError(f"k/v must be ({B}, {S}, KV, {hd}); got "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    if S < 1 or B < 1 or H % KV:
+        raise ValueError(f"need B, S >= 1 and n_heads {H} a multiple of "
+                         f"n_kv_heads {KV}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"kernel takes bf16 or f32, not {q.dtype}")
+    for name, x in (("k", k), ("v", v)):
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if hd > 256:
+        raise ValueError(f"kernel takes hd <= 256 (got {hd})")
+    if -(-S * (H // KV) // FLASH_BLOCK_M) > MAX_GRID_Z:
+        raise ValueError(f"S * n_rep = {S * (H // KV)} exceeds the grid")
+
+
+def prefill_attention(q, k, v, *, causal: bool = True, window=None
+                      ) -> torch.Tensor:
+    """q: (B, S, H, hd); k/v: (B, S, KV, hd) -> (B, S, H, hd) in q's dtype.
+    ``window`` (None or >= 1): key j is visible to query i only if
+    j > i - window."""
+    _check_window(window)
+    if q.device.type == "cpu":
+        return prefill_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check_dense(q, k, v)
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    lib = _flash_lib()
+    kt = next((t for t in FLASH_KEY_TILES
+               if lib.prefill_flash_smem_bytes(FLASH_BLOCK_M, hd, t)
+               <= MAX_SMEM), None)
+    if kt is None:
+        raise ValueError(f"no key tile fits {MAX_SMEM} B of shared memory "
+                         f"at hd={hd}")
+    out = torch.empty_like(q)
+    fn = (lib.prefill_flash_bf16 if q.dtype == torch.bfloat16
+          else lib.prefill_flash_f32)
+    p = runtime.ptr
+    status = fn(p(q), p(k), p(v), p(out), B, S, H, KV, hd, int(bool(causal)),
+                int(window or 0), 1.0 / math.sqrt(hd), FLASH_BLOCK_M, kt,
+                THREADS, runtime.stream_ptr(q.device))
+    runtime.check_status(FLASH, status)
+    runtime.count_launch(FLASH)
     return out

@@ -298,3 +298,12 @@ def farview_summarize_ref(pool, chunk_blocks, n_tokens, do_summarize):
     s = s / torch.clamp(n_tokens.long(), min=1).float().reshape(B, *ones)
     gate = (do_summarize > 0).reshape(B, *ones)
     return torch.where(gate, s, torch.zeros_like(s)).to(pool.dtype)
+
+
+# ---------------------------------------------------------------------------
+# prefill attention oracle (dense, optional causal and window) — GQA
+# ---------------------------------------------------------------------------
+
+def prefill_attention_ref(q, k, v, *, causal=True, window=None):
+    from repro_torch.models.common import attention_dense
+    return attention_dense(q, k, v, causal=causal, window=window)

@@ -36,6 +36,7 @@ SOURCES = {
     "paged_decode": "paged_decode.cu",
     "chunked_prefill": "chunked_prefill.cu",
     "farview_summarize": "farview_summarize.cu",
+    "prefill_flash": "prefill_flash.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -9,10 +9,14 @@ Counterpart of ``repro/launch/serve.py`` for the flags the port has:
         --block-tokens 16 --prefill-chunk 64
 
 ``--mode full`` adds the far view (``EngineConfig.farview_cap`` and
-``sv_chunk`` at their defaults). ``--full-width`` serves the
-architecture's published widths (random weights from ``--seed``), cut in
-depth to ``--n-layers``; without it the reduced config runs. ``--device cpu`` runs the plain PyTorch path on the
-CPU. ``--prompt-len LO:HI`` / ``--gen-len LO:HI`` replace the mixed
+``sv_chunk`` at their defaults). ``--arch seamless-m4t-medium`` serves
+the encoder-decoder family: each request is encoded at admission from the
+engine's default frame embeddings (8 frames drawn from its rid; the
+reference launcher has no frames flag either), and its prompt rides the
+decode step. ``--full-width`` serves the architecture's published widths
+(random weights from ``--seed``), cut in depth to ``--n-layers`` (encoder
+and decoder layers each, for encdec); without it the reduced config runs.
+``--device cpu`` runs the plain PyTorch path on the CPU. ``--prompt-len LO:HI`` / ``--gen-len LO:HI`` replace the mixed
 workload's lengths with uniform draws from a seeded numpy generator.
 """
 from __future__ import annotations
@@ -23,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced, with_depth
 from repro_torch.core.scheduler import Request
 from repro_torch.data import traces
 from repro_torch.serving.factory import build
@@ -110,7 +114,7 @@ def make_workload(n_requests: int, vocab: int, *, seed: int = 0,
 
 def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-32b")
+    ap.add_argument("--arch", default="qwen2.5-32b", choices=ARCH_IDS)
     ap.add_argument("--mode", default="paged_merge",
                     choices=["arena", "paged", "paged_merge", "full"],
                     help="'full' adds the bounded far view (summaries of "
@@ -138,7 +142,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="the architecture's published widths (random "
                          "weights) instead of the reduced config")
     ap.add_argument("--n-layers", type=int, default=None,
-                    help="cut the depth to this many layers")
+                    help="cut the depth to this many layers (encdec: this "
+                         "many encoder and decoder layers)")
     return ap
 
 
@@ -149,7 +154,7 @@ def main(argv=None, *, return_engines: bool = False):
         cfg = get_config(args.arch) if args.full_width \
             else get_reduced(args.arch)
         if args.n_layers is not None:
-            cfg = cfg.replace(n_layers=args.n_layers)
+            cfg = with_depth(cfg, args.n_layers)
     engines = build(args.arch, mode=args.mode, batch=args.batch,
                     max_seq=args.max_seq, near_window=args.near_window,
                     block_tokens=args.block_tokens,

@@ -2,9 +2,10 @@
 
 torch cannot reproduce jax's PRNG, so parity runs carry the reference's
 weights over instead of re-drawing them. The input is the reference's
-params as a nested dict of numpy arrays (layers stacked with a leading L
-axis, as ``lax.scan`` consumes them); the output is the port's layout (a
-list of per-layer dicts). bf16 arrays (numpy dtype name ``bfloat16``) go
+params as a nested dict of numpy arrays (each layer stack — ``layers``,
+or an encoder-decoder's ``enc_layers`` and ``dec_layers`` — carries a
+leading L axis, as ``lax.scan`` consumes it); the output is the port's
+layout (a list of per-layer dicts for each stack). bf16 arrays (numpy dtype name ``bfloat16``) go
 through f32, which is exact.
 """
 from __future__ import annotations
@@ -33,13 +34,20 @@ def _layer(tree, i):
     return _map(tree, lambda a: np.asarray(a)[i])
 
 
+def _is_stack(key: str, value) -> bool:
+    return key.endswith("layers") and isinstance(value, dict)
+
+
+def _n_layers(stack) -> int:
+    while isinstance(stack, dict):
+        stack = next(iter(stack.values()))
+    return np.asarray(stack).shape[0]
+
+
 def params_from_reference(tree, *, device="cpu") -> dict:
     """Reference params (nested dict of numpy arrays) -> the port's params."""
     cm.set_matmul_precision()
-    stacked = tree["layers"]
-    n_layers = np.asarray(stacked["ln1"]["scale"]).shape[0]
-    out = {k: _map(v, lambda a: _tensor(a, device))
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_map(_layer(stacked, i), lambda a: _tensor(a, device))
-                     for i in range(n_layers)]
-    return out
+    to = lambda a: _tensor(a, device)
+    return {k: ([_map(_layer(v, i), to) for i in range(_n_layers(v))]
+                if _is_stack(k, v) else _map(v, to))
+            for k, v in tree.items()}

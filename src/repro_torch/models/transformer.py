@@ -19,22 +19,6 @@ from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 
 
-def _randn(gen, shape, scale, device):
-    return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=device) * scale).to(cm.DTYPE)
-
-
-def _dense_init(gen, d_in, d_out, device, bias=False):
-    p = {"w": _randn(gen, (d_in, d_out), d_in ** -0.5, device)}
-    if bias:
-        p["b"] = torch.zeros(d_out, dtype=cm.DTYPE, device=device)
-    return p
-
-
-def _norm_init(dim, device):
-    return {"scale": torch.ones(dim, dtype=cm.DTYPE, device=device)}
-
-
 def init_params(cfg: ModelConfig, *, seed: int, device) -> dict:
     """Random weights from ``seed`` with an explicit ``torch.Generator`` on
     ``device`` (the reference's init distributions: N(0, 0.02) embedding,
@@ -44,24 +28,19 @@ def init_params(cfg: ModelConfig, *, seed: int, device) -> dict:
     cm.set_matmul_precision()
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    params = {"embed": _randn(gen, (cfg.vocab_size, d), 0.02, device),
+    d = cfg.d_model
+    params = {"embed": cm.randn(gen, (cfg.vocab_size, d), 0.02, device),
               "layers": []}
     for _ in range(cfg.n_layers):
         params["layers"].append({
-            "ln1": _norm_init(d, device),
-            "attn": {"wq": _dense_init(gen, d, h * hd, device, cfg.qkv_bias),
-                     "wk": _dense_init(gen, d, kv * hd, device, cfg.qkv_bias),
-                     "wv": _dense_init(gen, d, kv * hd, device, cfg.qkv_bias),
-                     "wo": _dense_init(gen, h * hd, d, device)},
-            "ln2": _norm_init(d, device),
-            "mlp": {"gate": _dense_init(gen, d, cfg.d_ff, device),
-                    "up": _dense_init(gen, d, cfg.d_ff, device),
-                    "down": _dense_init(gen, cfg.d_ff, d, device)},
+            "ln1": cm.norm_init(d, device),
+            "attn": cm.gqa_init(gen, cfg, device),
+            "ln2": cm.norm_init(d, device),
+            "mlp": cm.mlp_init(gen, cfg, device),
         })
-    params["ln_f"] = _norm_init(d, device)
+    params["ln_f"] = cm.norm_init(d, device)
     if not cfg.tie_embeddings:
-        params["lm_head"] = _dense_init(gen, d, cfg.vocab_size, device)
+        params["lm_head"] = cm.dense_init(gen, d, cfg.vocab_size, device)
     return params
 
 

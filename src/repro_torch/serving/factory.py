@@ -2,9 +2,10 @@
 ``repro/serving/factory.py``).
 
 ``build(...)`` returns a list holding one engine (the port serves one
-single-device lane). ``cfg=`` passes a full configuration (for example
-``get_config("qwen2.5-32b").replace(n_layers=8)``); without it the
-reduced config of ``arch`` is used, as in the reference. ``device=``
+single-device lane). ``arch`` is ``"qwen2.5-32b"`` (dense) or
+``"seamless-m4t-medium"`` (encoder-decoder). ``cfg=`` passes a full
+configuration (for example ``with_depth(get_config("qwen2.5-32b"), 8)``);
+without it the reduced config of ``arch`` is used, as in the reference. ``device=``
 defaults to ``"cuda"``.
 
 Params are cached per (arch, seed, device) for the reduced config:

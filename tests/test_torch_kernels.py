@@ -430,3 +430,121 @@ def test_ops_dispatch_far_view_plain_and_kernel_agree_on_cpu():
     ka, kb = ops.farview_summarize(s[0], -s[0], *s[1:], impl="kernel")
     pa_, pb = ops.farview_summarize(s[0], -s[0], *s[1:], impl="plain")
     assert torch.equal(ka, pa_) and torch.equal(kb, pb)
+
+
+# ---------------------------------------------------------------------------
+# dense prefill attention (the encoder's; `_prefill_kernel`)
+# ---------------------------------------------------------------------------
+
+from repro.kernels.prefill_attention import prefill_attention_pallas  # noqa: E402
+from repro.models import common as jcm  # noqa: E402
+from repro_torch.models import common as tcm  # noqa: E402
+
+
+def _dense_case(seed, *, B, S, H, KV, hd, dtype):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    arrs = dict(q=f(B, S, H, hd), k=f(B, S, KV, hd), v=f(B, S, KV, hd))
+    return ({k: _pair(v, dtype)[0] for k, v in arrs.items()},
+            {k: _pair(v, dtype)[1] for k, v in arrs.items()})
+
+
+# (causal, window): the encoder's non-causal case, causal, and causal and
+# non-causal with a sliding window
+MASKS = [(False, None), (True, None), (True, 5), (False, 7)]
+MASK_IDS = ["full", "causal", "causal-w5", "w7"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_rep", [1, 2])
+@pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
+def test_prefill_plain_matches_pallas_interpret_and_ref(dtype, n_rep, mask):
+    """S a multiple of the Pallas block (48 = 3 x 16, so the TPU kernel
+    walks a 3 x 3 grid of tiles). Against the Pallas kernel, which keeps
+    f32 scores: f32 within 1e-5, bf16 within the bf16 tolerance above
+    (the plain version rounds scores and p to bf16). Against
+    ``ref.prefill_attention_ref`` (``attention_dense``, the same roundings):
+    f32 within 1e-5, bf16 within one bf16 ulp of the value."""
+    causal, window = mask
+    j, t = _dense_case(20 + n_rep, B=2, S=48, H=4, KV=4 // n_rep, hd=16,
+                       dtype=dtype)
+    got = ops.prefill_attention(t["q"], t["k"], t["v"], causal=causal,
+                                window=window)
+    assert got.shape == (2, 48, 4, 16) and got.dtype == TDT[dtype]
+    tol = 1e-5 if dtype == "float32" else TOL[dtype]
+    want = prefill_attention_pallas(j["q"], j["k"], j["v"], causal=causal,
+                                    window=window, q_blk=16, k_blk=16,
+                                    interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+    want = jref.prefill_attention_ref(j["q"], j["k"], j["v"], causal=causal,
+                                      window=window)
+    g, w = _f32(got), _f32(want)
+    if dtype == "float32":
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-5)
+    else:
+        assert (np.abs(g - w) <= _bf16_ulp(np.maximum(np.abs(g),
+                                                      np.abs(w)))).all()
+    assert torch.equal(got, tref.prefill_attention_ref(
+        t["q"], t["k"], t["v"], causal=causal, window=window))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 13, 37])
+def test_prefill_plain_ragged_lengths_match_ref(dtype, S):
+    """Encoder lengths are arbitrary (the Pallas wrapper asserts S % blk ==
+    0; the CUDA kernel and its plain version take any S >= 1)."""
+    for causal, window in MASKS:
+        j, t = _dense_case(S, B=1, S=S, H=6, KV=3, hd=16, dtype=dtype)
+        got = ops.prefill_attention(t["q"], t["k"], t["v"], causal=causal,
+                                    window=window, impl="plain")
+        want = jref.prefill_attention_ref(j["q"], j["k"], j["v"],
+                                          causal=causal, window=window)
+        g, w = _f32(got), _f32(want)
+        assert np.isfinite(g).all()
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-5)
+        else:
+            assert (np.abs(g - w) <= _bf16_ulp(np.maximum(np.abs(g),
+                                                          np.abs(w)))).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", MASKS[:3], ids=MASK_IDS[:3])
+def test_attention_blocked_matches_reference(dtype, mask):
+    """The blocked online-softmax form (``gqa_full`` above S 1024) at small
+    blocks, against the reference's ``attention_blocked``: f32 within 1e-5,
+    bf16 within the bf16 tolerance (sums in another order round p to bf16
+    apart). A length that is not a multiple of the block falls back to
+    ``attention_dense`` on both sides."""
+    causal, window = mask
+    j, t = _dense_case(30, B=2, S=32, H=4, KV=2, hd=16, dtype=dtype)
+    kw = dict(causal=causal, window=window, q_block=8, kv_block=16)
+    got = tcm.attention_blocked(t["q"], t["k"], t["v"], **kw)
+    want = jcm.attention_blocked(j["q"], j["k"], j["v"], **kw)
+    tol = 1e-5 if dtype == "float32" else TOL[dtype]
+    assert got.dtype == TDT[dtype]
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+    kw["q_block"] = 12                                   # 32 % 12 != 0
+    assert torch.equal(tcm.attention_blocked(t["q"], t["k"], t["v"], **kw),
+                       tcm.attention_dense(t["q"], t["k"], t["v"],
+                                           causal=causal, window=window))
+
+
+def test_prefill_wrapper_rejects_what_the_kernel_does_not_take():
+    j, t = _dense_case(40, B=1, S=8, H=4, KV=2, hd=16, dtype="bfloat16")
+    q, k, v = t["q"], t["k"], t["v"]
+    pfa._check_dense(q, k, v)                              # as built: fine
+    for bad in ((q.half(), k, v), (q, k.float(), v),
+                (q, k[:, :4].contiguous(), v),
+                (q[:, :, :3].contiguous(), k, v),
+                (q.transpose(1, 2).contiguous().transpose(1, 2), k, v),
+                (q, k[..., :8].contiguous(), v[..., :8].contiguous())):
+        with pytest.raises((TypeError, ValueError)):
+            pfa._check_dense(*bad)
+    for impl in ("kernel", "plain"):
+        with pytest.raises(ValueError, match="window"):
+            ops.prefill_attention(q, k, v, window=0, impl=impl)
+    # on CPU tensors the kernel wrapper takes the plain version: bitwise
+    a = ops.prefill_attention(q, k, v, causal=True, window=3, impl="kernel")
+    b = ops.prefill_attention(q, k, v, causal=True, window=3, impl="plain")
+    assert torch.equal(a, b)
