@@ -54,6 +54,24 @@ Phases, in order; any failure raises and the script exits non-zero:
              logits within ``LOGIT_TOL`` on identical inputs, streams part
              only below ``TIE_MARGIN_ENCDEC``; steps, frames and pager
              stats equal a CPU run of the reduced config.
+10. serve_quant — the serve trace with ``--kv-dtype fp8_e4m3`` and again
+             with ``int8`` (the quantized KV tier): serve's checks, the
+             quantized branches of both paged kernels launched steps x
+             layers and chunk dispatches x layers, and a peak of reserved
+             KV of the same blocks as serve's at the narrow block size.
+11. parity_quant — the serve trace at full width with 2 layers and each
+             narrow dtype, the kernel path and the plain path stepped in
+             lockstep: after every step, layer 0's codes and scales of each
+             block written by a request whose tokens agree in both runs are
+             bitwise equal, logits within ``LOGIT_TOL``, streams part only
+             below ``TIE_MARGIN``; steps, frames and pager stats equal a
+             CPU run.
+
+The kernels phase holds the quantized branches (fp8_e4m3 and int8 pools
+with per-(block, kv head) scales) against their plain versions with the
+same tolerances, run == run and skip on == off bitwise; their library
+yardstick is SDPA over the window already dequantized (the dequantize
+excluded).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -127,6 +145,8 @@ ENC_ULPS = 8
 # decoder logits on identical decoder inputs differ through those cross
 # K/V; streams may part where the plain top-2 margin is below this
 TIE_MARGIN_ENCDEC = 0.125
+# the quantized KV tier: the narrow storage dtypes
+KV_DTYPES = ("fp8_e4m3", "int8")
 
 
 def log(*a):
@@ -220,45 +240,100 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
+def quantize_pool(torch, pool, kv_dtype):
+    """A (P, BT, KV, hd) pool as the quantized tier stores it: narrow codes
+    and (P, KV) f32 scales, each block's absmax over its rows per kv
+    head mapped to the dtype's range (ref.quant_range)."""
+    from repro_torch.kernels import ref
+    dt = {"fp8_e4m3": torch.float8_e4m3fn, "int8": torch.int8}[kv_dtype]
+    qmax = ref.quant_range(dt)
+    x = pool.float()
+    scale = (x.abs().amax(dim=(1, 3)) / qmax).contiguous()
+    x = torch.clamp(x / scale.clamp_min(1e-12)[:, None, :, None], -qmax, qmax)
+    if dt == torch.int8:
+        x = torch.round(x)
+    return x.to(dt).contiguous(), scale
+
+
+def quant_inputs(torch, d, kv_dtype):
+    """``d`` with its pools replaced by narrow codes, plus their scales."""
+    d = dict(d)
+    d["pool_k"], d["k_scale"] = quantize_pool(torch, d["pool_k"], kv_dtype)
+    d["pool_v"], d["v_scale"] = quantize_pool(torch, d["pool_v"], kv_dtype)
+    return d
+
+
+def dequantized(torch, d, dtype):
+    """``d`` with the quantized pools dequantized into ``dtype`` (the
+    library yardstick's inputs: the dequantize is not timed)."""
+    out = dict(d)
+    for n in ("k", "v"):
+        out["pool_" + n] = (d["pool_" + n].float()
+                            * d[n + "_scale"][:, None, :, None]).to(dtype)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_decode(torch, pa, dev, dtype, shape, seed):
+def check_decode(torch, pa, dev, dtype, shape, seed, kv_dtype=None):
+    """The decode kernel against its plain version (with ``kv_dtype``: its
+    quantized branch, on the same inputs quantized); skip on == off and
+    run == run bitwise."""
     d, W = decode_inputs(torch, dev, dtype, seed=seed, **shape)
+    kw = dict(near_window=W, cur_k=d["cur_k"], cur_v=d["cur_v"])
+    if kv_dtype is not None:
+        d = quant_inputs(torch, d, kv_dtype)
+        kw.update(k_scale=d["k_scale"], v_scale=d["v_scale"])
     args = [d[k] for k in ("q", "pool_k", "pool_v", "block_table",
                            "window_base", "seq_lens", "slot_active")]
-    kw = dict(near_window=W, cur_k=d["cur_k"], cur_v=d["cur_v"])
     on = pa.paged_decode_attention(*args, skip_extent=True, **kw)
     off = pa.paged_decode_attention(*args, skip_extent=False, **kw)
+    again = pa.paged_decode_attention(*args, skip_extent=True, **kw)
     want = pa.plain(*args, skip_extent=True, **kw)
     torch.cuda.synchronize()
+    tag = f"({kv_dtype or 'same-type pool'}, {dtype}, {shape})"
     if not torch.equal(on, off):
-        raise AssertionError(f"paged_decode skip on != off ({dtype}, {shape})")
+        raise AssertionError(f"paged_decode skip on != off {tag}")
+    if not torch.equal(on, again):
+        raise AssertionError(f"paged_decode: two runs differ {tag}")
+    if not torch.isfinite(on).all():
+        raise AssertionError(f"paged_decode: non-finite output {tag}")
     err = (on.float() - want.float()).abs().max().item()
     if not torch.allclose(on.float(), want.float(), **TOL[str(dtype)[6:]]):
         raise AssertionError(f"paged_decode vs plain: max abs err {err} "
-                             f"({dtype}, {shape})")
+                             f"{tag}")
     return d, W, err
 
 
-def check_chunk(torch, pfa, dev, dtype, shape, seed):
+def check_chunk(torch, pfa, dev, dtype, shape, seed, kv_dtype=None):
+    """The chunk kernel against its plain version (with ``kv_dtype``: its
+    quantized branch); skip on == off and run == run bitwise."""
     d, W = chunk_inputs(torch, dev, dtype, seed=seed, **shape)
+    kw = dict(near_window=W)
+    if kv_dtype is not None:
+        d = quant_inputs(torch, d, kv_dtype)
+        kw.update(k_scale=d["k_scale"], v_scale=d["v_scale"])
     args = [d[k] for k in ("q", "pool_k", "pool_v", "cur_k", "cur_v",
                            "block_table", "window_base", "start_pos",
                            "n_valid")]
-    on = pfa.chunked_prefill_attention(*args, near_window=W, skip_extent=True)
-    off = pfa.chunked_prefill_attention(*args, near_window=W,
-                                        skip_extent=False)
-    want = pfa.plain(*args, near_window=W, skip_extent=True)
+    on = pfa.chunked_prefill_attention(*args, skip_extent=True, **kw)
+    off = pfa.chunked_prefill_attention(*args, skip_extent=False, **kw)
+    again = pfa.chunked_prefill_attention(*args, skip_extent=True, **kw)
+    want = pfa.plain(*args, skip_extent=True, **kw)
     torch.cuda.synchronize()
+    tag = f"({kv_dtype or 'same-type pool'}, {dtype}, {shape})"
     if not torch.equal(on, off):
-        raise AssertionError(f"chunked_prefill skip on != off ({dtype}, "
-                             f"{shape})")
+        raise AssertionError(f"chunked_prefill skip on != off {tag}")
+    if not torch.equal(on, again):
+        raise AssertionError(f"chunked_prefill: two runs differ {tag}")
+    if not torch.isfinite(on).all():
+        raise AssertionError(f"chunked_prefill: non-finite output {tag}")
     err = (on.float() - want.float()).abs().max().item()
     if not torch.allclose(on.float(), want.float(), **TOL[str(dtype)[6:]]):
         raise AssertionError(f"chunked_prefill vs plain: max abs err {err} "
-                             f"({dtype}, {shape})")
+                             f"{tag}")
     return d, W, err
 
 
@@ -361,13 +436,28 @@ def check_summarize(torch, fvs, dev, dtype, shape, seed):
     return d, err
 
 
+def block_bytes(d, BT):
+    """Bytes of one walked window block of a kernel's inputs: its K and V
+    rows of every kv head, its table entry and, for a quantized pool, its
+    k and v scales (one f32 per kv head each) and one dequantize multiply
+    per element (the second value)."""
+    KV, hd = d["pool_k"].shape[2:]
+    pool_elem = d["pool_k"].element_size()
+    byts = BT * KV * hd * 2 * pool_elem + 4
+    if "k_scale" in d:
+        return byts + 2 * KV * 4, 2 * BT * KV * hd
+    return byts, 0
+
+
 def decode_work(d, W, BT, elem):
     """Bytes the decode function must move (each input once: q, the window
     blocks in each active slot's extent, the current token, the output) and
-    its flops (QK and PV over each active slot's valid keys)."""
+    its flops (QK and PV over each active slot's valid keys; the dequantize
+    of each walked block of a quantized pool)."""
     B, H, hd = d["q"].shape
     KV = d["pool_k"].shape[2]
     NB = d["block_table"].shape[1]
+    per_block, deq = block_bytes(d, BT)
     byts = 2 * B * H * hd * elem + 2 * B * KV * hd * elem
     flops = 0
     for b in range(B):
@@ -377,9 +467,9 @@ def decode_work(d, W, BT, elem):
         lo_pos = max(0, t + 1 - W)
         lo = min(max((lo_pos - wb) // BT, 0), NB)
         hi = max(min(max((t - wb) // BT + 1, 0), NB), lo)
-        byts += (hi - lo) * BT * KV * hd * 2 * elem + (hi - lo) * 4
+        byts += (hi - lo) * per_block
         n_keys = t - lo_pos + 1               # (t - W, t) plus the current token
-        flops += 4 * H * hd * n_keys
+        flops += 4 * H * hd * n_keys + (hi - lo) * deq
     return byts, flops
 
 
@@ -387,6 +477,7 @@ def chunk_work(d, W, BT, elem):
     B, C, H, hd = d["q"].shape
     KV = d["pool_k"].shape[2]
     NB = d["block_table"].shape[1]
+    per_block, deq = block_bytes(d, BT)
     byts = 0
     flops = 0
     for b in range(B):
@@ -398,7 +489,8 @@ def chunk_work(d, W, BT, elem):
         if s > wb:
             lo = min(max((max(0, s - W + 1) - wb) // BT, 0), NB)
             hi = max(min(max((s - 1 - wb) // BT + 1, 0), NB), lo)
-            byts += (hi - lo) * BT * KV * hd * 2 * elem + (hi - lo) * 4
+            byts += (hi - lo) * per_block
+            flops += (hi - lo) * deq
         for c in range(nv):
             p = s + c
             ctx = max(0, s - max(0, p - W + 1))       # pool keys before s
@@ -660,14 +752,14 @@ def phase_kernels(torch):
         for name, shp in dec_shapes.items():
             d, W, err = check_decode(torch, pa, dev, dtype, shp, seed=1)
             log(f"paged_decode {name} {dtype}: max_abs_err {err:.3e}; "
-                f"skip on == off bitwise")
+                f"skip on == off, run == run, bitwise")
             if name in ("full", "encdec") and dtype == torch.bfloat16:
                 key = "paged_decode" + ("_encdec" if name == "encdec" else "")
                 res[key] = (d, W, err, shp["BT"])
         for name, shp in chk_shapes.items():
             d, W, err = check_chunk(torch, pfa, dev, dtype, shp, seed=2)
             log(f"chunked_prefill {name} {dtype}: max_abs_err {err:.3e}; "
-                f"skip on == off bitwise")
+                f"skip on == off, run == run, bitwise")
             if name == "full" and dtype == torch.bfloat16:
                 res["chunked_prefill"] = (d, W, err, shp["BT"])
         for name, shp in dense_shapes.items():
@@ -677,14 +769,42 @@ def phase_kernels(torch):
             if name in ("encoder", "gqa") and dtype == torch.bfloat16:
                 key = "prefill_flash" + ("_gqa" if name == "gqa" else "")
                 res[key] = (d, shp, err)
+        # the quantized branches: qwen's decode and chunk shapes with
+        # narrow pools (the encdec family has no quantized tier)
+        for kvd in KV_DTYPES:
+            for name in ("parity", "full"):
+                d, W, err = check_decode(torch, pa, dev, dtype,
+                                         dec_shapes[name], seed=6,
+                                         kv_dtype=kvd)
+                log(f"paged_decode {kvd} {name} {dtype}: max_abs_err "
+                    f"{err:.3e}; skip on == off, run == run, bitwise")
+                if name == "full" and dtype == torch.bfloat16:
+                    res[f"paged_decode_{kvd}"] = (d, W, err,
+                                                  dec_shapes[name]["BT"])
+                d, W, err = check_chunk(torch, pfa, dev, dtype,
+                                        chk_shapes[name], seed=7,
+                                        kv_dtype=kvd)
+                log(f"chunked_prefill {kvd} {name} {dtype}: max_abs_err "
+                    f"{err:.3e}; skip on == off, run == run, bitwise")
+                if name == "full" and dtype == torch.bfloat16:
+                    res[f"chunked_prefill_{kvd}"] = (d, W, err,
+                                                     chk_shapes[name]["BT"])
 
     rows = {}
-    for key in ("paged_decode", "paged_decode_encdec"):
+    decode_keys = ["paged_decode", "paged_decode_encdec"]
+    chunk_keys = ["chunked_prefill"]
+    for kvd in KV_DTYPES:
+        decode_keys.append(f"paged_decode_{kvd}")
+        chunk_keys.append(f"chunked_prefill_{kvd}")
+    for key in decode_keys:
         d, W, err, BT = res[key]
         args = [d[k] for k in ("q", "pool_k", "pool_v", "block_table",
                                "window_base", "seq_lens", "slot_active")]
         kw = dict(near_window=W, cur_k=d["cur_k"], cur_v=d["cur_v"],
                   skip_extent=True)
+        if "k_scale" in d:
+            kw.update(k_scale=d["k_scale"], v_scale=d["v_scale"])
+        lib = dequantized(torch, d, d["q"].dtype) if "k_scale" in d else d
         byts, flops = decode_work(d, W, BT, 2)
         rows[key] = dict(
             route="cuda",
@@ -693,23 +813,28 @@ def phase_kernels(torch):
             max_abs_err=err,
             ms=time_ms(torch, lambda: pa.paged_decode_attention(*args, **kw)),
             plain_ms=time_ms(torch, lambda: pa.plain(*args, **kw)),
-            library_ms=time_ms(torch, sdpa_decode(torch, d, W)),
+            library_ms=time_ms(torch, sdpa_decode(torch, lib, W)),
             **bound(byts, flops, "bfloat16"))
-    d, W, err, BT = res["chunked_prefill"]
-    args = [d[k] for k in ("q", "pool_k", "pool_v", "cur_k", "cur_v",
-                           "block_table", "window_base", "start_pos",
-                           "n_valid")]
-    byts, flops = chunk_work(d, W, BT, 2)
-    rows["chunked_prefill"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
-        replaces="src/repro/kernels/prefill_attention.py:78",
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: pfa.chunked_prefill_attention(
-            *args, near_window=W, skip_extent=True)),
-        plain_ms=time_ms(torch, lambda: pfa.plain(
-            *args, near_window=W, skip_extent=True)),
-        library_ms=time_ms(torch, sdpa_chunk(torch, d, W)),
-        **bound(byts, flops, "bfloat16"))
+    for key in chunk_keys:
+        d, W, err, BT = res[key]
+        args = [d[k] for k in ("q", "pool_k", "pool_v", "cur_k", "cur_v",
+                               "block_table", "window_base", "start_pos",
+                               "n_valid")]
+        kw = dict(near_window=W, skip_extent=True)
+        if "k_scale" in d:
+            kw.update(k_scale=d["k_scale"], v_scale=d["v_scale"])
+        lib = dequantized(torch, d, d["q"].dtype) if "k_scale" in d else d
+        byts, flops = chunk_work(d, W, BT, 2)
+        rows[key] = dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
+            replaces="src/repro/kernels/prefill_attention.py:78",
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: pfa.chunked_prefill_attention(
+                *args, **kw)),
+            plain_ms=time_ms(torch, lambda: pfa.plain(*args, **kw)),
+            library_ms=time_ms(torch, sdpa_chunk(torch, lib, W)),
+            **bound(byts, flops, "bfloat16"))
     d, f, W, err, BT = res["paged_decode_far"]
     args = [d[k] for k in ("q", "pool_k", "pool_v", "block_table",
                            "window_base", "seq_lens", "slot_active")]
@@ -754,7 +879,9 @@ def phase_kernels(torch):
             library_ms=time_ms(torch, sdpa_dense(torch, d, **kw)),
             **bound(byts, flops, "bfloat16"))
     for k, r in rows.items():
-        log(f"{k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+        lib = ("library (SDPA on the dequantized window, dequantize "
+               "excluded)" if k.endswith(KV_DTYPES) else "library")
+        log(f"{k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, {lib} "
             f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
     return rows
@@ -772,9 +899,11 @@ def bound(byts, flops, dtype):
 # phases 4 and 5: the engine
 # ---------------------------------------------------------------------------
 
-def serve_argv(n_layers, device="cuda", full_width=True, mode="paged_merge"):
+def serve_argv(n_layers, device="cuda", full_width=True, mode="paged_merge",
+               kv_dtype="bf16"):
     s = SERVE_FULL if mode == "full" else SERVE
-    return ["--arch", ARCH, "--mode", mode, "--workload", "mixed",
+    return ["--arch", ARCH, "--mode", mode, "--kv-dtype", kv_dtype,
+            "--workload", "mixed",
             "--requests", str(s["requests"]), "--batch", str(s["batch"]),
             "--max-seq", str(s["max_seq"]),
             "--near-window", str(s["near_window"]),
@@ -874,6 +1003,205 @@ def phase_serve_full(torch, n_layers, merge_peak=None, device="cuda",
     log("serve_full:", json.dumps(summary))
     del engines, eng
     return launches, summary
+
+
+def phase_serve_quant(torch, n_layers, kv_dtype, merge_peak=None,
+                      device="cuda", full_width=True):
+    """The serve trace with the quantized KV tier; ``merge_peak`` is the
+    bf16 serve phase's peak reserved KV on the same trace."""
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import serve
+    runtime.reset_launches()
+    out, engines = serve.main(serve_argv(n_layers, device, full_width,
+                                         kv_dtype=kv_dtype),
+                              return_engines=True)
+    launches = dict(runtime.LAUNCHES)
+    eng = engines[0]
+    a, L = check_engine(eng, SERVE["requests"])
+    assert a["kv_dtype"] == kv_dtype and "k_scale" in eng.pools, a
+    assert a["quant_bytes_saved"] > 0, a
+    steps, chunks = eng.steps_run, eng._chunk_dispatches
+    assert chunks > 0 and a["kernel_blocks_skipped"] > 0, a
+    if device == "cuda":
+        assert a["decode_kernel_launches"] == steps * L, a
+        assert a["chunk_kernel_launches"] == chunks * L, a
+        assert launches["paged_decode"] == launches["paged_decode_quant"] \
+            == steps * L, launches
+        assert launches["chunked_prefill"] \
+            == launches["chunked_prefill_quant"] == chunks * L, launches
+    peak = a["peak_reserved_kv"]
+    dense_block = eng._dense_block_bytes
+    if merge_peak is not None:
+        # the control plane depends on lengths only: the same blocks are
+        # reserved, each at the narrow block size (codes and scales)
+        assert peak * dense_block == merge_peak * eng.block_bytes, (
+            peak, merge_peak, eng.block_bytes, dense_block)
+    lat = out["latency"]
+    summary = dict(
+        kv_dtype=kv_dtype, tokens_s=out["throughput_tok_s"],
+        wall_tok_s=out["wall_tok_s"], step_p50_ms=lat["p50_ms"],
+        step_p95_ms=lat["p95_ms"], step_p99_ms=lat["p99_ms"], steps=steps,
+        chunk_dispatches=chunks, tokens=out["tokens"], n_layers=L,
+        block_bytes=eng.block_bytes, dense_block_bytes=dense_block,
+        peak_reserved_kv_bytes=peak,
+        serve_peak_reserved_kv_bytes=merge_peak,
+        peak_ratio=(peak / merge_peak if merge_peak else None),
+        quant_bytes_saved=a["quant_bytes_saved"],
+        quant_scale_bytes=a["quant_scale_bytes"],
+        max_memory_allocated=out.get("max_memory_allocated"),
+        launches_paged_decode_quant=launches["paged_decode_quant"],
+        launches_chunked_prefill_quant=launches["chunked_prefill_quant"],
+        pager_stats=dict(eng.pager.stats))
+    log("serve_quant:", json.dumps(summary))
+    del engines, eng
+    return launches, summary
+
+
+def agreeing_blocks(engs):
+    """Physical blocks holding the written tokens of every active request
+    whose tokens so far are the same in both runs (the same block ids in
+    both: the control plane depends on lengths only). A block's codes and
+    scales depend only on its own tokens, whose layer-0 K/V both paths
+    compute with the same torch ops."""
+    k, p = engs["kernel"], engs["plain"]
+    out = []
+    for slot in k.sched.active_slots():
+        rk, rp = k.sched.request_at(slot), p.sched.request_at(slot)
+        if rk is None or rp is None or rk.rid != rp.rid \
+                or list(rk.generated) != list(rp.generated):
+            continue
+        sid = int(k._slot_sid[slot])
+        n = -(-int(k._slot_len[slot]) // k.bt)
+        blocks = k.pager.sessions[sid].blocks[:n]
+        assert blocks == p.pager.sessions[int(p._slot_sid[slot])].blocks[:n]
+        out += blocks
+    return out
+
+
+def layer0_bits(torch, pools, blocks):
+    """Layer 0's K/V codes (as integers) and scales of ``blocks``."""
+    idx = torch.tensor(blocks, dtype=torch.long, device=pools["k"].device)
+    out = []
+    for n in ("k", "v", "k_scale", "v_scale"):
+        x = pools[n][0]
+        if x.dtype == torch.float8_e4m3fn:
+            x = x.view(torch.uint8)
+        out.append(x[idx])
+    return out
+
+
+def phase_parity_quant(torch, kv_dtype, n_layers=2, device="cuda",
+                       full_width=True):
+    """The serve trace with a narrow KV dtype at full width and
+    ``n_layers``: the kernel path and the plain path stepped in lockstep.
+    After each step, the layer-0 codes and scales of every block written
+    by a request whose tokens agree in both runs must be bitwise equal
+    (:func:`agreeing_blocks`); logits within LOGIT_TOL on identical inputs,
+    streams part only below TIE_MARGIN; steps, frames and pager stats
+    equal a CPU run of the reduced config."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import ops, runtime
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+    from repro_torch.serving.factory import build
+    s = SERVE
+    cfg = (get_config(ARCH) if full_width else get_reduced(ARCH)).replace(
+        n_layers=n_layers)
+    params = registry.init_params(cfg, seed=s["seed"], device=device)
+    ekw = dict(mode="paged_merge", batch=s["batch"], max_seq=s["max_seq"],
+               near_window=s["near_window"], block_tokens=s["block_tokens"],
+               prefill_chunk=s["prefill_chunk"], kv_dtype=kv_dtype)
+
+    def trace():
+        return serve.make_workload(s["requests"], cfg.vocab_size,
+                                   seed=s["seed"], prompt_len=s["prompt_len"],
+                                   gen_len=s["gen_len"])
+
+    engs = {}
+    for impl in ("kernel", "plain"):
+        engs[impl] = build(ARCH, cfg=cfg, params=params, device=device,
+                           debug_logits=True, **ekw)[0]
+        for r in trace():
+            engs[impl].submit(r)
+    runtime.reset_launches()
+    k_launch = {k: 0 for k in runtime.LAUNCHES}
+    blocks_compared = 0
+    busy = lambda e: bool(e.sched.waiting or e.sched.active_slots())
+    while busy(engs["kernel"]) or busy(engs["plain"]):
+        for impl, eng in engs.items():
+            ops.set_default_impl(impl)
+            before = dict(runtime.LAUNCHES)
+            if busy(eng):
+                eng.step()
+            if impl == "plain":
+                assert runtime.LAUNCHES == before, "the plain path launched"
+            else:
+                for k in k_launch:
+                    k_launch[k] += runtime.LAUNCHES[k] - before[k]
+        ops.set_default_impl("kernel")
+        blocks = agreeing_blocks(engs)
+        if blocks:
+            for a, b in zip(layer0_bits(torch, engs["kernel"].pools, blocks),
+                            layer0_bits(torch, engs["plain"].pools, blocks)):
+                assert torch.equal(a, b), (
+                    f"layer 0 codes or scales differ after step "
+                    f"{engs['kernel'].steps_run} ({kv_dtype})")
+            blocks_compared += len(blocks)
+    k_eng, p_eng = engs["kernel"], engs["plain"]
+    for eng in (k_eng, p_eng):
+        check_engine(eng, s["requests"])
+        assert all(np.isfinite(lg).all() for lg in eng.debug_logits)
+    if device == "cuda":
+        assert k_launch["paged_decode_quant"] == k_eng.steps_run * n_layers
+        assert k_launch["chunked_prefill_quant"] \
+            == k_eng._chunk_dispatches * n_layers, k_launch
+    kreq = {r.rid: r for r in k_eng.sched.finished}
+    preq = {r.rid: r for r in p_eng.sched.finished}
+    first_diff, margins = [], []
+    logit_diff, n_cmp = 0.0, 0
+    for rid, kr in kreq.items():
+        pr = preq[rid]
+        toks, ptoks = list(kr.generated), list(pr.generated)
+        i = next((j for j, (a, b) in enumerate(zip(toks, ptoks)) if a != b),
+                 len(toks))
+        for j in range(min(i + 1, len(toks))):
+            logit_diff = max(logit_diff, float(np.abs(
+                kr.logit_trace[j] - pr.logit_trace[j]).max()))
+            n_cmp += 1
+        if i == len(toks):
+            continue
+        top2 = np.sort(pr.logit_trace[i])[-2:]
+        margin = float(top2[1] - top2[0])
+        assert margin < TIE_MARGIN, (
+            f"rid {rid}: kernel and plain streams differ at token {i} where "
+            f"the plain top-2 margin is {margin} >= {TIE_MARGIN}")
+        margins.append(margin)
+        first_diff.append(i)
+    assert logit_diff < LOGIT_TOL, (
+        f"kernel vs plain logits differ by {logit_diff} on identical inputs")
+
+    cpu = build(ARCH, device="cpu", **ekw)[0]
+    reqs = trace()
+    for r in reqs:
+        r.prompt = r.prompt % cpu.cfg.vocab_size
+    serve.run_lanes([cpu], reqs)
+    for eng in (k_eng, p_eng):
+        assert eng.steps_run == cpu.steps_run, (eng.steps_run, cpu.steps_run)
+        assert eng.frames_committed == cpu.frames_committed
+        assert eng.pager.stats == cpu.pager.stats, (eng.pager.stats,
+                                                     cpu.pager.stats)
+    out = dict(kv_dtype=kv_dtype, steps=k_eng.steps_run, rids=len(kreq),
+               streams_identical=len(kreq) - len(first_diff),
+               first_diff_token_index=sorted(first_diff),
+               max_parting_margin=max(margins, default=None),
+               logits_compared=n_cmp, logits_max_abs_diff=logit_diff,
+               layer0_blocks_bitwise=blocks_compared,
+               pager_stats_equal_cpu=True)
+    log("parity_quant:", json.dumps(out))
+    del k_eng, p_eng, engs, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def record_far(eng):
@@ -1332,7 +1660,8 @@ def main(argv=None):
                     help="depth of the full-width serve phase (64 = all)")
     ap.add_argument("--phases",
                     default="build,kernels,serve,serve_full,parity,"
-                            "parity_full,serve_encdec,parity_encdec",
+                            "parity_full,serve_encdec,parity_encdec,"
+                            "serve_quant,parity_quant",
                     help="comma-separated subset (the device phase always "
                          "runs); 'profile' and 'profile_encdec' add a "
                          "torch.profiler pass over serve's and serve_encdec's "
@@ -1392,6 +1721,15 @@ def main(argv=None):
         launches["prefill_flash_gqa"] = le["prefill_flash"]
         missing = [k for k in ("paged_decode", "prefill_flash") if le[k] <= 0]
         assert not missing, f"kernels never launched by serve_encdec: {missing}"
+    if "serve_quant" in phases:
+        for kvd in KV_DTYPES:
+            lq, _ = phase_serve_quant(torch, args.n_layers, kvd, merge_peak)
+            launches[f"paged_decode_{kvd}"] = lq["paged_decode_quant"]
+            launches[f"chunked_prefill_{kvd}"] = lq["chunked_prefill_quant"]
+            missing = [k for k in ("paged_decode_quant",
+                                   "chunked_prefill_quant") if lq[k] <= 0]
+            assert not missing, (f"quantized branches never launched by "
+                                 f"serve_quant ({kvd}): {missing}")
     if {"serve", "serve_full", "serve_encdec"} <= phases:
         missing = [k for k in runtime.SOURCES
                    if not any(launches.get(r, 0) > 0
@@ -1403,6 +1741,9 @@ def main(argv=None):
         phase_parity(torch, mode="full")
     if "parity_encdec" in phases:
         phase_parity_encdec(torch)
+    if "parity_quant" in phases:
+        for kvd in KV_DTYPES:
+            phase_parity_quant(torch, kvd)
     if "profile" in phases:
         phase_profile(torch, args.n_layers, args.profile_out)
     if "profile_encdec" in phases:

@@ -14,6 +14,10 @@ Counterpart of ``repro/core/engine.py`` for the main path:
     decode attends up to ``farview_cap`` summaries chosen by the host's
     utility EMA (``core/farview.py``). Prompts ride the decode step (the
     chunked prefill executor is off in this mode, as in the reference);
+  * the quantized KV-block tier (``kv_dtype="fp8_e4m3"`` or ``"int8"``,
+    DESIGN.md §10) on the dense family: narrow pools with f32 scale pools
+    per (layer, block, kv head), quantized at commit and dequantized in
+    the paged kernels' quantized branches;
   * the encoder-decoder family: at each admission an encoder executor
     encodes the request's frame embeddings (``Request.enc_embeds``, or
     8 frames drawn from the rid) and writes the slot's immutable cross
@@ -145,8 +149,6 @@ def _not_ported(cfg: ModelConfig, ecfg: EngineConfig) -> Optional[str]:
     if not ecfg.greedy:
         return ("greedy=False (ROADMAP queue 1, items 5 and 6h: on-device "
                 "sampling with detected EOS)")
-    if ecfg.kv_dtype != "bf16":
-        return f"kv_dtype={ecfg.kv_dtype!r} (ROADMAP queue 1, item 6f)"
     if ecfg.host_pool_blocks > 0 or ecfg.kv_oversubscribe > 1.0:
         return "a host KV tier (ROADMAP queue 1, item 6d)"
     if ecfg.prefix_cache:
@@ -161,6 +163,12 @@ class KVRMEngine:
                  device=None):
         if ecfg.mode not in MODES:
             raise ValueError(f"mode {ecfg.mode!r} not in {MODES}")
+        # --- quantized KV-block tier (DESIGN.md §10) -------------------
+        self._quant = ecfg.kv_dtype != "bf16"
+        if self._quant:
+            err = registry.quant_decode_error(cfg, ecfg.kv_dtype)
+            if err is not None:
+                raise ValueError(err)
         conflict = _farview_conflict(ecfg)
         if conflict is not None:
             raise ValueError(conflict)
@@ -191,7 +199,14 @@ class KVRMEngine:
         # per-layer payload bytes (transport accounting uses the real model)
         self.bytes_per_token = registry.paged_payload_bytes_per_token(
             cfg, ecfg.kv_dtype)
-        self.block_bytes = bt * self.bytes_per_token
+        # per-(layer, block) scale overhead: one f32 per kv head for each of
+        # the k and v scale pools (0 when unquantized)
+        self.scale_bytes_per_block = (2 * cfg.n_kv_heads * 4
+                                      if self._quant else 0)
+        self.block_bytes = bt * self.bytes_per_token + self.scale_bytes_per_block
+        # what the same block costs at full bf16 width (quant savings basis)
+        self._dense_block_bytes = bt * registry.paged_payload_bytes_per_token(
+            cfg)
         self.farview = ecfg.mode == "full"
         self.cap = ecfg.farview_cap if self.farview else 1
         self.max_chunks = (-(-max(1, ecfg.max_seq - self.W) // ecfg.sv_chunk)
@@ -216,10 +231,14 @@ class KVRMEngine:
             block_bytes=self.block_bytes,
             merge_threshold_bytes=cfg.serving.merge_threshold_bytes,
             max_hold_steps=cfg.serving.max_hold_steps, max_trains=self.MT,
-            dense_block_bytes=self.block_bytes)
+            dense_block_bytes=self._dense_block_bytes)
         self.fv = (FarViewPolicy(ecfg.batch, self.max_chunks, self.cap,
                                  ecfg.sv_chunk, bt) if self.farview else None)
         self._rid_to_sid: Dict[int, int] = {}
+        # block-indexed pools (block axis 1): the payload a COW tail copy
+        # moves (data and, quantized, scale pools)
+        self._block_pool_keys = [k for k in ("k", "v", "k_scale", "v_scale")
+                                 if k in self.pools]
         self._cow_pairs_step: List = []            # COW tail copies to run
         self._cow_origin: Dict[int, int] = {}      # this round: dst -> src
 
@@ -404,11 +423,15 @@ class KVRMEngine:
             self._cow_pairs_step.append((src, dst))
 
     def _cow_copy(self, pairs) -> None:
-        """Whole-block COW tail copies, all layers, in place."""
+        """Whole-block COW tail copies, all layers and every block-indexed
+        pool, in place."""
         src = torch.tensor([p[0] for p in pairs], device=self.device)
         dst = torch.tensor([p[1] for p in pairs], device=self.device)
-        for k in ("k", "v"):
-            self.pools[k][:, dst] = self.pools[k][:, src]
+        for k in self._block_pool_keys:
+            pool = self.pools[k]
+            if pool.dtype == torch.float8_e4m3fn:    # copy the codes' bytes
+                pool = pool.view(torch.uint8)
+            pool[:, dst] = pool[:, src]
 
     def _alias_src_resident(self, src_sid: int, prefix_len: int) -> bool:
         """The alias source must have COMMITTED the shared prefix (a source
@@ -750,6 +773,10 @@ class KVRMEngine:
             "cow_groups": st.cow_groups,
             "cow_bytes": st.cow_bytes,
             "kv_dtype": self.e.kv_dtype,
+            "quant_bytes_saved": st.quant_bytes_saved,
+            "quant_scale_bytes": ((self.num_blocks - 1)
+                                  * self.scale_bytes_per_block
+                                  * max(1, registry.n_paged_layers(self.cfg))),
             "decode_kernel_launches": self._decode_launches,
             "chunk_kernel_launches": self._chunk_launches,
             "farview_kernel_launches": self._farview_launches,

@@ -14,6 +14,12 @@
 // Rows i >= n_valid are zero; a slot with n_valid = 0 writes zeros and
 // reads nothing.
 //
+// Quantized tier (DESIGN.md §10; the `quant=True` branch of
+// `_chunk_kernel`): the pools hold fp8_e4m3 or int8 codes (TP) and
+// k_scale / v_scale (P, KV) f32 one scale per (physical block, kv head); a
+// pool element loads as to_f32(code) * scale[blk, g], blk read from the
+// block table. The chunk's own K/V, q and the output stay in T.
+//
 // Design. Grid (B, KV, ceil(C * n_rep / BM)): one thread block owns BM
 // query rows (chunk token c, grouped head r) of one kv head. A runtime loop
 // walks the pool blocks of the extent, staging each block's (BT, hd) K/V
@@ -30,17 +36,22 @@
 // tensor rate, so it is bound by memory bytes, though not by far. Rows of
 // one block reuse each staged K/V tile BM times from shared memory. Dots
 // run on CUDA cores in f32; wgmma/TMA tiles are later work.
+#include <type_traits>
+
 #include "online_softmax.cuh"
 
 namespace {
 
-template <typename T>
+// T: q / cur / out element; TP: the pool's element (T, or a narrow code)
+template <typename T, typename TP>
 __global__ void chunked_prefill_kernel(
     const T* __restrict__ q,             // (B, C, H, hd)
-    const T* __restrict__ pool_k,        // (P, BT, KV, hd)
-    const T* __restrict__ pool_v,        // (P, BT, KV, hd)
+    const TP* __restrict__ pool_k,       // (P, BT, KV, hd)
+    const TP* __restrict__ pool_v,       // (P, BT, KV, hd)
     const T* __restrict__ cur_k,         // (B, C, KV, hd)
     const T* __restrict__ cur_v,         // (B, C, KV, hd)
+    const float* __restrict__ k_scale,   // (P, KV), quantized pools only
+    const float* __restrict__ v_scale,   // (P, KV), quantized pools only
     const int* __restrict__ block_table,   // (B, NB)
     const int* __restrict__ window_base,   // (B,)
     const int* __restrict__ start_pos,     // (B,)
@@ -48,6 +59,7 @@ __global__ void chunked_prefill_kernel(
     T* __restrict__ out,                 // (B, C, H, hd)
     int C, int H, int KV, int hd, int BT, int NB, int near_window,
     int skip_extent, float scale, int BM) {
+  constexpr bool kQuant = !std::is_same<T, TP>::value;
   extern __shared__ float smem[];
   const int b = blockIdx.x, g = blockIdx.y;
   const int n_rep = H / KV;
@@ -99,11 +111,21 @@ __global__ void chunked_prefill_kernel(
   for (int i = lo; i < hi; ++i) {
     const int blk = block_table[(size_t)b * NB + i];
     const size_t base = (size_t)blk * BT * row_stride + (size_t)g * hd;
+    [[maybe_unused]] float ks = 1.f, vs = 1.f;
+    if constexpr (kQuant) {  // this physical block's scales (kv head g)
+      ks = k_scale[(size_t)blk * KV + g];
+      vs = v_scale[(size_t)blk * KV + g];
+    }
     for (int e = tid; e < BT * hd; e += nthr) {
       const int j = e / hd, d = e - j * hd;
       const size_t off = base + (size_t)j * row_stride + d;
-      tile.Ks[(size_t)j * (hd + 1) + d] = kvrm::to_f32(pool_k[off]);
-      tile.Vs[(size_t)j * hd + d] = kvrm::to_f32(pool_v[off]);
+      if constexpr (kQuant) {
+        tile.Ks[(size_t)j * (hd + 1) + d] = kvrm::to_f32(pool_k[off]) * ks;
+        tile.Vs[(size_t)j * hd + d] = kvrm::to_f32(pool_v[off]) * vs;
+      } else {
+        tile.Ks[(size_t)j * (hd + 1) + d] = kvrm::to_f32(pool_k[off]);
+        tile.Vs[(size_t)j * hd + d] = kvrm::to_f32(pool_v[off]);
+      }
     }
     __syncthreads();
     const int pos0 = wb + i * BT;
@@ -140,25 +162,30 @@ __global__ void chunked_prefill_kernel(
   }
 }
 
-template <typename T>
+template <typename T, typename TP>
 int launch(const void* q, const void* pool_k, const void* pool_v,
-           const void* cur_k, const void* cur_v, const void* block_table,
+           const void* cur_k, const void* cur_v, const void* k_scale,
+           const void* v_scale, const void* block_table,
            const void* window_base, const void* start_pos,
            const void* n_valid, void* out, int B, int C, int H, int KV,
            int hd, int BT, int NB, int near_window, int skip_extent,
            float scale, int BM, int threads, void* stream) {
+  constexpr bool kQuant = !std::is_same<T, TP>::value;
+  if (kQuant != (k_scale != nullptr) || kQuant != (v_scale != nullptr))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = kvrm::tile_floats(BM, hd, BT) * sizeof(float);
+  auto kernel = chunked_prefill_kernel<T, TP>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        chunked_prefill_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int rows = C * (H / KV);
   dim3 grid(B, KV, (rows + BM - 1) / BM);
-  chunked_prefill_kernel<T><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)pool_k, (const T*)pool_v, (const T*)cur_k,
-      (const T*)cur_v, (const int*)block_table, (const int*)window_base,
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      (const T*)q, (const TP*)pool_k, (const TP*)pool_v, (const T*)cur_k,
+      (const T*)cur_v, (const float*)k_scale, (const float*)v_scale,
+      (const int*)block_table, (const int*)window_base,
       (const int*)start_pos, (const int*)n_valid, (T*)out, C, H, KV, hd, BT,
       NB, near_window, skip_extent, scale, BM);
   return (int)cudaGetLastError();
@@ -172,31 +199,27 @@ size_t chunked_prefill_smem_bytes(int bm, int hd, int BT) {
   return kvrm::tile_floats(bm, hd, BT) * sizeof(float);
 }
 
-int chunked_prefill_bf16(const void* q, const void* pool_k,
-                         const void* pool_v, const void* cur_k,
-                         const void* cur_v, const void* block_table,
-                         const void* window_base, const void* start_pos,
-                         const void* n_valid, void* out, int B, int C, int H,
-                         int KV, int hd, int BT, int NB, int near_window,
-                         int skip_extent, float scale, int BM, int threads,
-                         void* stream) {
-  return launch<__nv_bfloat16>(q, pool_k, pool_v, cur_k, cur_v, block_table,
-                               window_base, start_pos, n_valid, out, B, C, H,
-                               KV, hd, BT, NB, near_window, skip_extent,
-                               scale, BM, threads, stream);
-}
+// One entry per (q dtype, pool dtype). k_scale / v_scale: (P, KV) f32 for a
+// quantized pool, null otherwise.
+#define CHUNKED_PREFILL_ENTRY(NAME, T, TP)                                   \
+  int NAME(const void* q, const void* pool_k, const void* pool_v,           \
+           const void* cur_k, const void* cur_v, const void* k_scale,       \
+           const void* v_scale, const void* block_table,                    \
+           const void* window_base, const void* start_pos,                  \
+           const void* n_valid, void* out, int B, int C, int H, int KV,     \
+           int hd, int BT, int NB, int near_window, int skip_extent,        \
+           float scale, int BM, int threads, void* stream) {                \
+    return launch<T, TP>(q, pool_k, pool_v, cur_k, cur_v, k_scale, v_scale, \
+                         block_table, window_base, start_pos, n_valid, out, \
+                         B, C, H, KV, hd, BT, NB, near_window, skip_extent, \
+                         scale, BM, threads, stream);                       \
+  }
 
-int chunked_prefill_f32(const void* q, const void* pool_k, const void* pool_v,
-                        const void* cur_k, const void* cur_v,
-                        const void* block_table, const void* window_base,
-                        const void* start_pos, const void* n_valid, void* out,
-                        int B, int C, int H, int KV, int hd, int BT, int NB,
-                        int near_window, int skip_extent, float scale, int BM,
-                        int threads, void* stream) {
-  return launch<float>(q, pool_k, pool_v, cur_k, cur_v, block_table,
-                       window_base, start_pos, n_valid, out, B, C, H, KV, hd,
-                       BT, NB, near_window, skip_extent, scale, BM, threads,
-                       stream);
-}
+CHUNKED_PREFILL_ENTRY(chunked_prefill_bf16, __nv_bfloat16, __nv_bfloat16)
+CHUNKED_PREFILL_ENTRY(chunked_prefill_f32, float, float)
+CHUNKED_PREFILL_ENTRY(chunked_prefill_bf16_fp8, __nv_bfloat16, __nv_fp8_e4m3)
+CHUNKED_PREFILL_ENTRY(chunked_prefill_bf16_int8, __nv_bfloat16, int8_t)
+CHUNKED_PREFILL_ENTRY(chunked_prefill_f32_fp8, float, __nv_fp8_e4m3)
+CHUNKED_PREFILL_ENTRY(chunked_prefill_f32_int8, float, int8_t)
 
 }  // extern "C"

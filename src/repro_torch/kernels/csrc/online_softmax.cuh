@@ -1,4 +1,5 @@
-// Shared pieces of the kernels: element conversion (all four), floor
+// Shared pieces of the kernels: element conversion (all four; the narrow
+// codes of the quantized KV tier widen exactly to f32), floor
 // division, and one flash-style online-softmax step over a tile of keys held
 // in shared memory (paged_decode.cu, chunked_prefill.cu, prefill_flash.cu).
 //
@@ -10,6 +11,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -22,6 +24,13 @@ constexpr float kNegInit = -1e30f;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+// quantized KV codes: every e4m3 and int8 value is an f32 value
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {

@@ -13,6 +13,15 @@
 //       pos >= 0 } + { the current token }
 //   (t = seq_lens[b]); retired slots (slot_active == 0) write zeros.
 //
+// Quantized tier (DESIGN.md §10; the `quant=True` branch of
+// `_decode_kernel`): the pools hold fp8_e4m3 or int8 codes (TP) and
+// k_scale / v_scale (P, KV) f32 hold one scale per (physical block, kv
+// head). A pool element loads as to_f32(code) * scale[blk, g], blk being the
+// block id read from the block table -- exactly the reference's dequantize
+// of the gathered window. q, the current token and the output stay in T,
+// and the current token is attended at full width. The far view and the
+// quantized tier are exclusive (the launch refuses both at once).
+//
 // With the far view the kernel also writes far_util[b, g, c]: far entry
 // c's final normalised probability summed over the n_rep query heads of kv
 // head g (zero for retired slots). The wrapper sums these partials over g
@@ -46,24 +55,31 @@
 // is bound by memory bytes. At full qwen2.5-32b width (hd 128, KV 8,
 // n_rep 5), batch 8, W 512 and BT 16 there are NB = 33 blocks of 64 KiB
 // (K+V, all kv heads) per slot: about 17.3 MB per layer, about 5.2 us at
-// 3.35 TB/s. This first kernel is simple, not fast: 64 thread blocks fill
-// half the card, loads are not pipelined and the dots run on CUDA cores
-// (no wgmma/TMA, no split-KV); those are later work.
+// 3.35 TB/s; narrow pools halve it. This first kernel is simple, not
+// fast: 64 thread blocks fill half the card, loads are not pipelined and
+// the dots run on CUDA cores (no wgmma/TMA, no split-KV); those are later
+// work. The tiles stay f32 in shared memory whatever the pool's type.
+#include <type_traits>
+
 #include "online_softmax.cuh"
 
 namespace {
 
-template <typename T, bool kFar>
+// T: q / cur / out / far element; TP: the pool's element (T, or a narrow
+// code of the quantized tier)
+template <typename T, typename TP, bool kFar>
 __global__ void paged_decode_kernel(
     const T* __restrict__ q,            // (B, H, hd)
-    const T* __restrict__ pool_k,       // (P, BT, KV, hd)
-    const T* __restrict__ pool_v,       // (P, BT, KV, hd)
+    const TP* __restrict__ pool_k,      // (P, BT, KV, hd)
+    const TP* __restrict__ pool_v,      // (P, BT, KV, hd)
     const int* __restrict__ block_table,  // (B, NB)
     const int* __restrict__ window_base,  // (B,)
     const int* __restrict__ seq_lens,     // (B,)  position of the current token
     const int* __restrict__ slot_active,  // (B,)
     const T* __restrict__ cur_k,        // (B, KV, hd)
     const T* __restrict__ cur_v,        // (B, KV, hd)
+    const float* __restrict__ k_scale,  // (P, KV), quantized pools only
+    const float* __restrict__ v_scale,  // (P, KV), quantized pools only
     const T* __restrict__ far_k,        // (B, MAXC, KV, hd) or null
     const T* __restrict__ far_v,        // (B, MAXC, KV, hd) or null
     const int* __restrict__ far_table,  // (B, CAP)
@@ -72,6 +88,7 @@ __global__ void paged_decode_kernel(
     float* __restrict__ far_util,       // (B, KV, CAP) or null
     int H, int KV, int hd, int BT, int NB, int MAXC, int CAP,
     int near_window, int skip_extent, float scale) {
+  constexpr bool kQuant = !std::is_same<T, TP>::value;
   extern __shared__ float smem[];
   const int b = blockIdx.x, g = blockIdx.y;
   const int n_rep = H / KV;
@@ -127,11 +144,21 @@ __global__ void paged_decode_kernel(
   for (int i = lo; i < hi; ++i) {
     const int blk = block_table[(size_t)b * NB + i];
     const size_t base = (size_t)blk * BT * row_stride + (size_t)g * hd;
+    [[maybe_unused]] float ks = 1.f, vs = 1.f;
+    if constexpr (kQuant) {  // this physical block's scales (kv head g)
+      ks = k_scale[(size_t)blk * KV + g];
+      vs = v_scale[(size_t)blk * KV + g];
+    }
     for (int e = tid; e < BT * hd; e += nthr) {
       const int j = e / hd, d = e - j * hd;
       const size_t off = base + (size_t)j * row_stride + d;
-      tile.Ks[(size_t)j * (hd + 1) + d] = kvrm::to_f32(pool_k[off]);
-      tile.Vs[(size_t)j * hd + d] = kvrm::to_f32(pool_v[off]);
+      if constexpr (kQuant) {
+        tile.Ks[(size_t)j * (hd + 1) + d] = kvrm::to_f32(pool_k[off]) * ks;
+        tile.Vs[(size_t)j * hd + d] = kvrm::to_f32(pool_v[off]) * vs;
+      } else {
+        tile.Ks[(size_t)j * (hd + 1) + d] = kvrm::to_f32(pool_k[off]);
+        tile.Vs[(size_t)j * hd + d] = kvrm::to_f32(pool_v[off]);
+      }
     }
     __syncthreads();
     const int pos0 = wb + i * BT;
@@ -172,19 +199,27 @@ size_t smem_bytes(int n_rep, int hd, int BT, int CAP) {
          sizeof(float);
 }
 
-template <typename T>
+template <typename T, typename TP>
 int launch(const void* q, const void* pool_k, const void* pool_v,
            const void* block_table, const void* window_base,
            const void* seq_lens, const void* slot_active, const void* cur_k,
-           const void* cur_v, const void* far_k, const void* far_v,
-           const void* far_table, const void* far_valid, void* out,
-           void* far_util, int B, int H, int KV, int hd, int BT, int NB,
-           int MAXC, int CAP, int near_window, int skip_extent, float scale,
-           int threads, void* stream) {
+           const void* cur_v, const void* k_scale, const void* v_scale,
+           const void* far_k, const void* far_v, const void* far_table,
+           const void* far_valid, void* out, void* far_util, int B, int H,
+           int KV, int hd, int BT, int NB, int MAXC, int CAP,
+           int near_window, int skip_extent, float scale, int threads,
+           void* stream) {
+  constexpr bool kQuant = !std::is_same<T, TP>::value;
   const bool far = far_k != nullptr;
+  // the far view and the quantized tier are exclusive; a quantized pool
+  // needs its scales
+  if ((kQuant && (far || k_scale == nullptr || v_scale == nullptr)) ||
+      (!kQuant && (k_scale != nullptr || v_scale != nullptr)))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(H / KV, hd, BT, far ? CAP : 0);
-  auto kernel = far ? paged_decode_kernel<T, true>
-                    : paged_decode_kernel<T, false>;
+  // (a quantized pool has no far instantiation: kFar = !kQuant)
+  auto kernel = far ? paged_decode_kernel<T, TP, !kQuant>
+                    : paged_decode_kernel<T, TP, false>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -192,12 +227,13 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
   }
   dim3 grid(B, KV);
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)pool_k, (const T*)pool_v,
+      (const T*)q, (const TP*)pool_k, (const TP*)pool_v,
       (const int*)block_table, (const int*)window_base, (const int*)seq_lens,
       (const int*)slot_active, (const T*)cur_k, (const T*)cur_v,
-      (const T*)far_k, (const T*)far_v, (const int*)far_table,
-      (const int*)far_valid, (T*)out, (float*)far_util, H, KV, hd, BT, NB,
-      MAXC, CAP, near_window, skip_extent, scale);
+      (const float*)k_scale, (const float*)v_scale, (const T*)far_k,
+      (const T*)far_v, (const int*)far_table, (const int*)far_valid, (T*)out,
+      (float*)far_util, H, KV, hd, BT, NB, MAXC, CAP, near_window,
+      skip_extent, scale);
   return (int)cudaGetLastError();
 }
 
@@ -211,23 +247,31 @@ size_t paged_decode_smem_bytes(int n_rep, int hd, int BT, int CAP) {
   return smem_bytes(n_rep, hd, BT, CAP);
 }
 
-// Null far_k / far_v / far_table / far_valid / far_util: no far view.
-#define PAGED_DECODE_ENTRY(NAME, T)                                          \
+// One entry per (q dtype, pool dtype). Null far_k / far_v / far_table /
+// far_valid / far_util: no far view. k_scale / v_scale: (P, KV) f32 for a
+// quantized pool, null otherwise.
+#define PAGED_DECODE_ENTRY(NAME, T, TP)                                      \
   int NAME(const void* q, const void* pool_k, const void* pool_v,           \
            const void* block_table, const void* window_base,                \
            const void* seq_lens, const void* slot_active, const void* cur_k, \
-           const void* cur_v, const void* far_k, const void* far_v,         \
-           const void* far_table, const void* far_valid, void* out,         \
-           void* far_util, int B, int H, int KV, int hd, int BT, int NB,    \
-           int MAXC, int CAP, int near_window, int skip_extent,             \
-           float scale, int threads, void* stream) {                        \
-    return launch<T>(q, pool_k, pool_v, block_table, window_base, seq_lens, \
-                     slot_active, cur_k, cur_v, far_k, far_v, far_table,    \
-                     far_valid, out, far_util, B, H, KV, hd, BT, NB, MAXC,  \
-                     CAP, near_window, skip_extent, scale, threads, stream); \
+           const void* cur_v, const void* k_scale, const void* v_scale,     \
+           const void* far_k, const void* far_v, const void* far_table,     \
+           const void* far_valid, void* out, void* far_util, int B, int H,  \
+           int KV, int hd, int BT, int NB, int MAXC, int CAP,               \
+           int near_window, int skip_extent, float scale, int threads,      \
+           void* stream) {                                                  \
+    return launch<T, TP>(q, pool_k, pool_v, block_table, window_base,       \
+                         seq_lens, slot_active, cur_k, cur_v, k_scale,      \
+                         v_scale, far_k, far_v, far_table, far_valid, out,  \
+                         far_util, B, H, KV, hd, BT, NB, MAXC, CAP,         \
+                         near_window, skip_extent, scale, threads, stream); \
   }
 
-PAGED_DECODE_ENTRY(paged_decode_bf16, __nv_bfloat16)
-PAGED_DECODE_ENTRY(paged_decode_f32, float)
+PAGED_DECODE_ENTRY(paged_decode_bf16, __nv_bfloat16, __nv_bfloat16)
+PAGED_DECODE_ENTRY(paged_decode_f32, float, float)
+PAGED_DECODE_ENTRY(paged_decode_bf16_fp8, __nv_bfloat16, __nv_fp8_e4m3)
+PAGED_DECODE_ENTRY(paged_decode_bf16_int8, __nv_bfloat16, int8_t)
+PAGED_DECODE_ENTRY(paged_decode_f32_fp8, float, __nv_fp8_e4m3)
+PAGED_DECODE_ENTRY(paged_decode_f32_int8, float, int8_t)
 
 }  // extern "C"

@@ -44,40 +44,54 @@ def pool_write_chunk(pool, vals, write_block, write_offset, n_valid):
                                     n_valid)
 
 
+def quant_pool_write_stacked(pool, scale, vals, write_block, write_offset,
+                             active):
+    """Quantize-at-commit write for the decode step (DESIGN.md §10): the
+    narrow pool and its per-block per-head scale pool, updated together in
+    place."""
+    return ref.quant_pool_write_stacked_ref(pool, scale, vals, write_block,
+                                            write_offset, active)
+
+
+def quant_pool_write_chunk(pool, scale, vals, write_block, write_offset,
+                           n_valid):
+    """Quantize-at-commit write for the chunked prefill step (§10)."""
+    return ref.quant_pool_write_chunk_ref(pool, scale, vals, write_block,
+                                          write_offset, n_valid)
+
+
 # ---------------------------------------------------------------------------
 
 def paged_decode_attention(q, pool_k, pool_v, block_table, window_base,
                            seq_lens, slot_active, *, near_window, cur_k,
                            cur_v, far_k=None, far_v=None, far_table=None,
-                           far_valid=None, skip_extent=False,
-                           impl: str | None = None):
+                           far_valid=None, k_scale=None, v_scale=None,
+                           skip_extent=False, impl: str | None = None):
     """Returns (B, H, hd); with the far view (``far_*`` given) ``(out,
-    far_util)``, as ``ref.paged_decode_attention_ref``."""
+    far_util)``, as ``ref.paged_decode_attention_ref``. Narrow pools come
+    with their scales ``k_scale``/``v_scale`` (P, KV)."""
     impl = impl or _DEFAULT_IMPL
     fn = (paged_attention.plain if impl == "plain"
           else paged_attention.paged_decode_attention)
     return fn(q, pool_k, pool_v, block_table, window_base, seq_lens,
               slot_active, near_window=near_window, cur_k=cur_k, cur_v=cur_v,
               far_k=far_k, far_v=far_v, far_table=far_table,
-              far_valid=far_valid, skip_extent=skip_extent)
+              far_valid=far_valid, k_scale=k_scale, v_scale=v_scale,
+              skip_extent=skip_extent)
 
 
 def chunked_prefill_attention(q, pool_k, pool_v, cur_k, cur_v, block_table,
                               window_base, start_pos, n_valid, *,
-                              near_window, skip_extent=False,
-                              impl: str | None = None):
+                              near_window, k_scale=None, v_scale=None,
+                              skip_extent=False, impl: str | None = None):
     """Every slot's prompt-chunk attention in one call: paged pre-chunk
     context + in-chunk causal (the chunked prefill executor's core;
-    DESIGN.md §3). q: (B, C, H, hd)."""
+    DESIGN.md §3). q: (B, C, H, hd); narrow pools come with their scales."""
     impl = impl or _DEFAULT_IMPL
-    if impl == "plain":
-        return pfa.plain(
-            q, pool_k, pool_v, cur_k, cur_v, block_table, window_base,
-            start_pos, n_valid, near_window=near_window,
-            skip_extent=skip_extent)
-    return pfa.chunked_prefill_attention(
-        q, pool_k, pool_v, cur_k, cur_v, block_table, window_base, start_pos,
-        n_valid, near_window=near_window, skip_extent=skip_extent)
+    fn = pfa.plain if impl == "plain" else pfa.chunked_prefill_attention
+    return fn(q, pool_k, pool_v, cur_k, cur_v, block_table, window_base,
+              start_pos, n_valid, near_window=near_window, k_scale=k_scale,
+              v_scale=v_scale, skip_extent=skip_extent)
 
 
 def prefill_attention(q, k, v, *, causal=True, window=None,

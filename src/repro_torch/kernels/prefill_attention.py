@@ -8,6 +8,9 @@ Pallas kernels:
   vmaps a per-slot kernel over the slots; here one launch
   (``csrc/chunked_prefill.cu``) covers every slot of the fixed-shape chunk
   step, and idle slots (``n_valid == 0``) write zeros and read nothing.
+  With the quantized tier the pools hold fp8_e4m3 or int8 codes, scaled
+  per (physical block, kv head) by ``k_scale``/``v_scale`` as they load
+  (the ``quant=True`` branch).
 * ``_prefill_kernel`` — dense full-sequence GQA flash attention with
   optional causal and window masks (``csrc/prefill_flash.cu``): the
   encoder's attention. Its plain version is what the reference's
@@ -26,8 +29,11 @@ import math
 import torch
 
 from repro_torch.kernels import ref, runtime
+from repro_torch.kernels.paged_attention import (QUANT_DTYPES, _check_quant,
+                                                 entry)
 
 NAME = "chunked_prefill"
+QUANT = NAME + "_quant"          # launch counter of the quantized branch
 THREADS = 256
 BLOCK_M = 64                     # query rows (chunk token, grouped head) per block
 MAX_SMEM = 227 * 1024
@@ -42,9 +48,11 @@ def _lib():
     lib = runtime.load(NAME)
     if not _argtypes_set:
         P, I = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.chunked_prefill_bf16, lib.chunked_prefill_f32):
-            fn.argtypes = [P] * 10 + [I] * 9 + [ctypes.c_float, I, I, P]
-            fn.restype = I
+        for q in _DTYPES:
+            for pool in (q, *QUANT_DTYPES):
+                fn = entry(lib, NAME, q, pool)
+                fn.argtypes = [P] * 12 + [I] * 9 + [ctypes.c_float, I, I, P]
+                fn.restype = I
         lib.chunked_prefill_smem_bytes.argtypes = [I, I, I]
         lib.chunked_prefill_smem_bytes.restype = ctypes.c_size_t
         _argtypes_set = True
@@ -52,7 +60,7 @@ def _lib():
 
 
 def _check(q, pool_k, pool_v, cur_k, cur_v, block_table, window_base,
-           start_pos, n_valid):
+           start_pos, n_valid, k_scale=None, v_scale=None):
     if q.dim() != 4 or pool_k.dim() != 4:
         raise ValueError(f"q must be (B,C,H,hd) and pools (P,BT,KV,hd); got "
                          f"{tuple(q.shape)} / {tuple(pool_k.shape)}")
@@ -64,12 +72,12 @@ def _check(q, pool_k, pool_v, cur_k, cur_v, block_table, window_base,
         raise ValueError(f"n_heads {H} not a multiple of n_kv_heads {KV}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"kernel takes bf16 or f32, not {q.dtype}")
-    for name, x, shape in (("pool_k", pool_k, None), ("pool_v", pool_v, None),
-                           ("cur_k", cur_k, (B, C, KV, hd)),
+    _check_quant(q, pool_k, pool_v, k_scale, v_scale)
+    for name, x, shape in (("cur_k", cur_k, (B, C, KV, hd)),
                            ("cur_v", cur_v, (B, C, KV, hd))):
         if x.dtype != q.dtype:
             raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
-        if shape is not None and tuple(x.shape) != shape:
+        if tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
     if block_table.dim() != 2 or block_table.shape[0] != B:
         raise ValueError("block_table must be (B, NB)")
@@ -94,19 +102,21 @@ def _check(q, pool_k, pool_v, cur_k, cur_v, block_table, window_base,
 
 def chunked_prefill_attention(q, pool_k, pool_v, cur_k, cur_v, block_table,
                               window_base, start_pos, n_valid, *,
-                              near_window: int, skip_extent: bool = True
-                              ) -> torch.Tensor:
-    """q: (B, C, H, hd); pool_k/pool_v: (P, BT, KV, hd); cur_k/cur_v:
+                              near_window: int, k_scale=None, v_scale=None,
+                              skip_extent: bool = True) -> torch.Tensor:
+    """q: (B, C, H, hd); pool_k/pool_v: (P, BT, KV, hd) in q's dtype, or
+    fp8_e4m3 / int8 codes with k_scale/v_scale (P, KV) f32; cur_k/cur_v:
     (B, C, KV, hd); block_table: (B, NB) int32; window_base, start_pos,
     n_valid: (B,) int32. Returns (B, C, H, hd) in q's dtype."""
     if q.device.type == "cpu":
         return plain(q, pool_k, pool_v, cur_k, cur_v, block_table,
                      window_base, start_pos, n_valid, near_window=near_window,
+                     k_scale=k_scale, v_scale=v_scale,
                      skip_extent=skip_extent)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, pool_k, pool_v, cur_k, cur_v, block_table, window_base,
-           start_pos, n_valid)
+           start_pos, n_valid, k_scale, v_scale)
     B, C, H, hd = q.shape
     P, BT, KV, _ = pool_k.shape
     NB = block_table.shape[1]
@@ -116,16 +126,17 @@ def chunked_prefill_attention(q, pool_k, pool_v, cur_k, cur_v, block_table,
         raise ValueError(f"shape needs {smem} B of shared memory "
                          f"(> {MAX_SMEM}): hd={hd} BT={BT}")
     out = torch.empty_like(q)
-    fn = (lib.chunked_prefill_bf16 if q.dtype == torch.bfloat16
-          else lib.chunked_prefill_f32)
+    fn = entry(lib, NAME, q.dtype, pool_k.dtype)
     p = runtime.ptr
-    status = fn(p(q), p(pool_k), p(pool_v), p(cur_k), p(cur_v),
-                p(block_table), p(window_base), p(start_pos), p(n_valid),
-                p(out), B, C, H, KV, hd, BT, NB, int(near_window),
+    status = fn(p(q), p(pool_k), p(pool_v), p(cur_k), p(cur_v), p(k_scale),
+                p(v_scale), p(block_table), p(window_base), p(start_pos),
+                p(n_valid), p(out), B, C, H, KV, hd, BT, NB, int(near_window),
                 int(bool(skip_extent)), 1.0 / math.sqrt(hd), BLOCK_M, THREADS,
                 runtime.stream_ptr(q.device))
     runtime.check_status(NAME, status)
     runtime.count_launch(NAME)
+    if pool_k.dtype in QUANT_DTYPES:
+        runtime.count_launch(QUANT)
     return out
 
 

@@ -8,6 +8,10 @@ truth for the CUDA kernels (``csrc/``): the CPU runs them, and
 
 Pool writes update the pool IN PLACE (JAX returns a new array): the pool
 is the engine's largest buffer, and the write touches B (or B·C) rows.
+
+Narrow pools (the quantized tier, DESIGN.md §10) are gathered, selected
+and scattered as raw bytes (a ``uint8`` view of an fp8 pool), so only the
+two casts, f32 -> code and code -> f32, touch the narrow type.
 """
 from __future__ import annotations
 
@@ -97,6 +101,163 @@ def pool_write_chunk_ref(pool, vals, write_block, write_offset, n_valid):
 
 
 # ---------------------------------------------------------------------------
+# quantized KV-block tier (DESIGN.md §10): absmax codes, f32 block scales
+# ---------------------------------------------------------------------------
+
+def quant_range(dtype) -> float:
+    """Symmetric representable range of a narrow KV storage dtype."""
+    if dtype == torch.int8:
+        return 127.0
+    if dtype == torch.float8_e4m3fn:
+        return 448.0
+    raise ValueError(f"not a quantized KV dtype: {dtype}")
+
+
+def _bits(pool: torch.Tensor) -> torch.Tensor:
+    """The pool's codes as an integer tensor of the same bytes (a view)."""
+    return pool.view(torch.uint8) if pool.dtype == torch.float8_e4m3fn \
+        else pool
+
+
+def _codes_f32(bits: torch.Tensor, dtype) -> torch.Tensor:
+    return bits.view(dtype).float()
+
+
+def _quant_cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """f32 -> narrow storage codes, returned as :func:`_bits` would give
+    them. Clipped first: float8_e4m3fn overflows to nan in the reference
+    (torch would saturate), so the clip is what makes both agree; ints
+    round half to even, as ``jnp.round``."""
+    qmax = quant_range(dtype)
+    x = torch.clamp(x, -qmax, qmax)
+    if dtype == torch.int8:
+        x = torch.round(x)
+    q = x.to(dtype)
+    return q.view(torch.uint8) if dtype == torch.float8_e4m3fn else q
+
+
+def dequant_gathered(win, scale):
+    """Dequantize a gathered window: win (..., BT, KV, hd) narrow codes,
+    scale (..., KV) f32 -> f32. Operates on the GATHERED window only —
+    never on the whole pool."""
+    return win.float() * scale[..., None, :, None]
+
+
+def gather_dequant(pool, scale, table):
+    """``dequant_gathered(pool[table], scale[table])``, with the gather on
+    the pool's bytes."""
+    tbl = table.long()
+    return dequant_gathered(_bits(pool)[tbl].view(pool.dtype), scale[tbl])
+
+
+def quant_pool_write_stacked_ref(pool, scale, vals, write_block, write_offset,
+                                 active):
+    """Quantizing variant of :func:`pool_write_stacked_ref` (one token per
+    slot, all layers), in place: fold the token's per-head absmax into the
+    block scale, requantize the block's existing rows if the scale grew,
+    then store the token at the new scale.
+
+    pool: (L, P, BT, KV, hd) narrow; scale: (L, P, KV) f32; vals: (L, B, KV,
+    hd) full precision; write_block/offset/active: (B,). Returns (pool,
+    scale). Inactive slots are redirected to scratch block 0 and write
+    back its current values, so every duplicate index carries one value."""
+    L = pool.shape[0]
+    qmax = quant_range(pool.dtype)
+    bits = _bits(pool)
+    mask = active > 0                                       # (B,)
+    blk = torch.where(mask, write_block, 0).long()
+    off = torch.where(mask, write_offset, 0).long()
+    l_idx = torch.arange(L, device=pool.device)[:, None]
+    v32 = vals.float()
+    amax = v32.abs().amax(dim=-1)                           # (L, B, KV)
+    prev_raw = scale[l_idx, blk[None, :]]                   # (L, B, KV)
+    prev = torch.where((off == 0)[None, :, None], 0.0, prev_raw)
+    new_scale = torch.maximum(prev, amax / qmax)
+    # requantize the written blocks' existing rows to the grown scale
+    # (ratio 1 is a lossless roundtrip; ratio 0 zeroes a recycled block)
+    ratio = prev / torch.clamp(new_scale, min=1e-12)        # (L, B, KV)
+    rows_cur = bits[l_idx, blk[None, :]]                    # (L, B, BT, KV, hd)
+    rows_q = _quant_cast(_codes_f32(rows_cur, pool.dtype)
+                         * ratio[:, :, None, :, None], pool.dtype)
+    bits[l_idx, blk[None, :]] = torch.where(
+        mask[None, :, None, None, None], rows_q, rows_cur)
+    qtok = _quant_cast(v32 / torch.clamp(new_scale, min=1e-12)[..., None],
+                       pool.dtype)                          # (L, B, KV, hd)
+    cur_tok = bits[l_idx, blk[None, :], off[None, :]]
+    bits[l_idx, blk[None, :], off[None, :]] = torch.where(
+        mask[None, :, None, None], qtok, cur_tok)
+    scale[l_idx, blk[None, :]] = torch.where(mask[None, :, None], new_scale,
+                                             prev_raw)
+    return pool, scale
+
+
+def quant_pool_write_chunk_ref(pool, scale, vals, write_block, write_offset,
+                               n_valid):
+    """Quantizing variant of :func:`pool_write_chunk_ref` (a batched prefill
+    chunk, all layers), in place, in the reference's three phases:
+
+    1. reset the scales of blocks that START inside this chunk (a token at
+       offset 0: scatter-min against 0, exact since scales are >= 0) and
+       fold every chunk token's absmax into its block scale (scatter-max);
+    2. requantize the pre-chunk rows of each written block to its final
+       scale — only the block's first chunk token does it (offset 0, or
+       the slot's first chunk token: a chunk appends a consecutive offset
+       run); every other token is redirected to scratch block 0 and writes
+       back its current rows;
+    3. store each chunk token at its block's final scale.
+
+    Every duplicate index of a scatter carries one value (or the min/max
+    commutes), so the order a device applies them in does not matter.
+    pool: (L, P, BT, KV, hd) narrow; scale: (L, P, KV) f32 (contiguous);
+    vals: (L, B, C, KV, hd); write_block/write_offset: (B, C); n_valid:
+    (B,). Returns (pool, scale)."""
+    L, P, BT, KV, hd = pool.shape
+    B, C = write_block.shape
+    N = B * C
+    dev = pool.device
+    qmax = quant_range(pool.dtype)
+    bits = _bits(pool)
+    ar = torch.arange(C, device=dev)
+    valid = (ar[None, :] < n_valid[:, None]).reshape(N)
+    blk = torch.where(valid, write_block.reshape(N), 0).long()
+    off = torch.where(valid, write_offset.reshape(N), 0).long()
+    l_idx = torch.arange(L, device=dev)[:, None]
+    v32 = vals.reshape(L, N, KV, hd).float()
+    amax = v32.abs().amax(dim=-1)                           # (L, N, KV)
+    prev_raw = scale[l_idx, blk[None, :]]                   # (L, N, KV)
+    fresh = valid & (off == 0)
+    first = valid & ((off == 0) | (torch.arange(N, device=dev) % C == 0))
+    prev = torch.where(fresh[None, :, None], 0.0, prev_raw)
+    # phase 1: reset fresh blocks, then fold the absmax
+    flat = scale.view(L * P, KV)
+    idx = (l_idx * P + blk[None, :]).reshape(L * N, 1).expand(L * N, KV)
+    src = torch.full_like(prev_raw, math.inf).masked_fill(
+        fresh[None, :, None], 0.0)
+    flat.scatter_reduce_(0, idx, src.reshape(L * N, KV), reduce="amin",
+                         include_self=True)
+    src = torch.where(valid[None, :, None], amax / qmax, 0.0)
+    flat.scatter_reduce_(0, idx, src.reshape(L * N, KV), reduce="amax",
+                         include_self=True)
+    new_scale = scale[l_idx, blk[None, :]]                  # (L, N, KV) final
+    # phase 2: requantize pre-chunk rows (a fresh block's ratio is 0,
+    # zeroing recycled contents)
+    ratio = prev / torch.clamp(new_scale, min=1e-12)
+    blk_first = torch.where(first, blk, 0)
+    rows_cur = bits[l_idx, blk_first[None, :]]              # (L, N, BT, KV, hd)
+    rows_q = _quant_cast(_codes_f32(rows_cur, pool.dtype)
+                         * ratio[:, :, None, :, None], pool.dtype)
+    bits[l_idx, blk_first[None, :]] = torch.where(
+        first[None, :, None, None, None], rows_q, rows_cur)
+    # phase 3: store the chunk tokens at the final block scales
+    qtok = _quant_cast(v32 / torch.clamp(new_scale, min=1e-12)[..., None],
+                       pool.dtype)
+    cur_tok = bits[l_idx, blk[None, :], off[None, :]]
+    bits[l_idx, blk[None, :], off[None, :]] = torch.where(
+        valid[None, :, None, None], qtok, cur_tok)
+    return pool, scale
+
+
+# ---------------------------------------------------------------------------
 # paged decode attention (near window + current token + far view) — GQA
 # ---------------------------------------------------------------------------
 
@@ -104,6 +265,7 @@ def paged_decode_attention_ref(q, pool_k, pool_v, block_table, window_base,
                                seq_lens, slot_active, *, near_window: int,
                                cur_k=None, cur_v=None, far_k=None, far_v=None,
                                far_table=None, far_valid=None,
+                               k_scale=None, v_scale=None,
                                skip_extent: bool = False):
     """q: (B, H, hd); pool_k/pool_v: (P, BT, KV, hd) (pre-write: the pool is
     read-only inside the layer loop); block_table: (B, NB); window_base,
@@ -113,6 +275,10 @@ def paged_decode_attention_ref(q, pool_k, pool_v, block_table, window_base,
     Far view (``mode="full"``): far_k/far_v (B, MAXC, KV, hd) summary pools,
     far_table/far_valid (B, CAP). The CAP selected summaries join the same
     softmax as the near window and the current token.
+
+    Quantized tier: k_scale/v_scale (P, KV) f32 dequantize the narrow
+    pools' GATHERED window blocks, each by the scale of its physical block
+    (the far view and the quantized tier are exclusive, DESIGN.md §10).
 
     Returns (B, H, hd) without the far view; with it ``(out, far_util)``,
     far_util (B, CAP) f32 being each far entry's normalised probability
@@ -126,9 +292,17 @@ def paged_decode_attention_ref(q, pool_k, pool_v, block_table, window_base,
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
 
-    tbl = block_table.long()
-    win_k = pool_k[tbl].reshape(B, W, KV, hd)
-    win_v = pool_v[tbl].reshape(B, W, KV, hd)
+    if k_scale is not None:
+        assert far_k is None, \
+            "far view and the quantized KV tier are exclusive (§10)"
+        win_k = gather_dequant(pool_k, k_scale, block_table).reshape(
+            B, W, KV, hd)
+        win_v = gather_dequant(pool_v, v_scale, block_table).reshape(
+            B, W, KV, hd)
+    else:
+        tbl = block_table.long()
+        win_k = pool_k[tbl].reshape(B, W, KV, hd)
+        win_v = pool_v[tbl].reshape(B, W, KV, hd)
 
     pos = window_base.long()[:, None] + torch.arange(W, device=dev)[None, :]
     t = seq_lens.long()[:, None]
@@ -200,6 +374,7 @@ def paged_decode_attention_ref(q, pool_k, pool_v, block_table, window_base,
 def chunked_prefill_attention_batched_ref(q, pool_k, pool_v, cur_k, cur_v,
                                           block_table, window_base, start_pos,
                                           n_valid, *, near_window: int,
+                                          k_scale=None, v_scale=None,
                                           skip_extent: bool = False
                                           ) -> torch.Tensor:
     """Every slot's C-token prompt chunk at once. q: (B, C, H, hd);
@@ -207,7 +382,8 @@ def chunked_prefill_attention_batched_ref(q, pool_k, pool_v, cur_k, cur_v,
     cur_k/cur_v: (B, C, KV, hd); block_table: (B, NB); window_base,
     start_pos, n_valid: (B,). Query i of slot b (position start + i)
     attends pool context [max(0, pos_i + 1 - W), start) plus the chunk
-    causally (j <= i, within W, j < n_valid). Rows >= n_valid are zero."""
+    causally (j <= i, within W, j < n_valid). Rows >= n_valid are zero.
+    k_scale/v_scale (P, KV) f32 dequantize narrow pools' gathered blocks."""
     B, C, H, hd = q.shape
     P, BT, KV, _ = pool_k.shape
     NB = block_table.shape[1]
@@ -216,9 +392,15 @@ def chunked_prefill_attention_batched_ref(q, pool_k, pool_v, cur_k, cur_v,
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
 
-    tbl = block_table.long()
-    win_k = pool_k[tbl].reshape(B, Wn, KV, hd)
-    win_v = pool_v[tbl].reshape(B, Wn, KV, hd)
+    if k_scale is not None:
+        win_k = gather_dequant(pool_k, k_scale, block_table).reshape(
+            B, Wn, KV, hd)
+        win_v = gather_dequant(pool_v, v_scale, block_table).reshape(
+            B, Wn, KV, hd)
+    else:
+        tbl = block_table.long()
+        win_k = pool_k[tbl].reshape(B, Wn, KV, hd)
+        win_v = pool_v[tbl].reshape(B, Wn, KV, hd)
 
     start = start_pos.long()
     qpos = start[:, None] + torch.arange(C, device=dev)[None, :]        # (B, C)
@@ -265,6 +447,7 @@ def chunked_prefill_attention_batched_ref(q, pool_k, pool_v, cur_k, cur_v,
 def chunked_prefill_attention_ref(q, pool_k, pool_v, cur_k, cur_v,
                                   block_table, window_base, start_pos,
                                   n_valid, *, near_window: int,
+                                  k_scale=None, v_scale=None,
                                   skip_extent: bool = False) -> torch.Tensor:
     """One slot's chunk, the reference's signature: q (C, H, hd),
     cur_k/cur_v (C, KV, hd), block_table (NB,), scalar window_base,
@@ -273,7 +456,8 @@ def chunked_prefill_attention_ref(q, pool_k, pool_v, cur_k, cur_v,
     return chunked_prefill_attention_batched_ref(
         q[None], pool_k, pool_v, cur_k[None], cur_v[None], block_table[None],
         as1(window_base), as1(start_pos), as1(n_valid),
-        near_window=near_window, skip_extent=skip_extent)[0]
+        near_window=near_window, k_scale=k_scale, v_scale=v_scale,
+        skip_extent=skip_extent)[0]
 
 
 # ---------------------------------------------------------------------------

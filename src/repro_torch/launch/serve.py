@@ -9,7 +9,8 @@ Counterpart of ``repro/launch/serve.py`` for the flags the port has:
         --block-tokens 16 --prefill-chunk 64
 
 ``--mode full`` adds the far view (``EngineConfig.farview_cap`` and
-``sv_chunk`` at their defaults). ``--arch seamless-m4t-medium`` serves
+``sv_chunk`` at their defaults). ``--kv-dtype fp8_e4m3`` or ``int8`` stores
+the paged K/V quantized (dense family; not with ``--mode full``). ``--arch seamless-m4t-medium`` serves
 the encoder-decoder family: each request is encoded at admission from the
 engine's default frame embeddings (8 frames drawn from its rid; the
 reference launcher has no frames flag either), and its prompt rides the
@@ -134,6 +135,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="LO:HI uniform prompt lengths (overrides the mix)")
     ap.add_argument("--gen-len", type=_range, default=None,
                     help="LO:HI uniform generation lengths")
+    ap.add_argument("--kv-dtype", default="bf16",
+                    choices=["bf16", "fp8_e4m3", "int8"],
+                    help="KV-block storage width (DESIGN.md §10): narrow "
+                         "dtypes store K/V quantized with per-block "
+                         "per-head scales, halving reserved KV bytes under "
+                         "the same descriptor interface")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and of the trace")
     ap.add_argument("--device", default="cuda",
@@ -158,8 +165,9 @@ def main(argv=None, *, return_engines: bool = False):
     engines = build(args.arch, mode=args.mode, batch=args.batch,
                     max_seq=args.max_seq, near_window=args.near_window,
                     block_tokens=args.block_tokens,
-                    prefill_chunk=args.prefill_chunk, seed=args.seed,
-                    cfg=cfg, device=args.device)
+                    prefill_chunk=args.prefill_chunk,
+                    kv_dtype=args.kv_dtype, seed=args.seed, cfg=cfg,
+                    device=args.device)
     eng = engines[0]
     reqs = make_workload(args.requests, eng.cfg.vocab_size, seed=args.seed,
                          prompt_len=args.prompt_len, gen_len=args.gen_len)

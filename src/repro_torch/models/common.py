@@ -41,10 +41,14 @@ def norm_init(dim, device):
 
 def gqa_init(gen, cfg, device):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": dense_init(gen, d, h * hd, device, cfg.qkv_bias),
-            "wk": dense_init(gen, d, kv * hd, device, cfg.qkv_bias),
-            "wv": dense_init(gen, d, kv * hd, device, cfg.qkv_bias),
-            "wo": dense_init(gen, h * hd, d, device)}
+    p = {"wq": dense_init(gen, d, h * hd, device, cfg.qkv_bias),
+         "wk": dense_init(gen, d, kv * hd, device, cfg.qkv_bias),
+         "wv": dense_init(gen, d, kv * hd, device, cfg.qkv_bias),
+         "wo": dense_init(gen, h * hd, d, device)}
+    if cfg.qk_norm:
+        p["q_norm"] = norm_init(hd, device)
+        p["k_norm"] = norm_init(hd, device)
+    return p
 
 
 def mlp_init(gen, cfg, device):

@@ -2,8 +2,9 @@
 engine calls, plus decode-pool geometry.
 
 Counterpart of ``repro/models/registry.py``. The port has the dense GQA
-family (dense, vlm) and the encoder-decoder family (encdec) with bf16 KV
-pools; other families and narrow KV dtypes raise.
+family (dense, vlm), with bf16 or quantized (fp8_e4m3, int8) KV pools, and
+the encoder-decoder family (encdec) with bf16 KV pools; other families
+raise.
 """
 from __future__ import annotations
 
@@ -50,11 +51,33 @@ def uses_paged_kv(cfg: ModelConfig) -> bool:
     return cfg.family != "ssm"
 
 
-def _check_kv_dtype(kv_dtype: str) -> None:
-    if kv_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: the port stores bf16 KV only (ROADMAP "
-            f"queue 1, item 6f brings the quantized tier)")
+# quantized KV-block storage tier (DESIGN.md §10): kv_dtype -> storage dtype.
+# Narrow dtypes add sibling per-(layer, block, kv-head) f32 scale pools that
+# the pager moves in lockstep with their data blocks (same block index).
+KV_DTYPES = {"bf16": cm.DTYPE,
+             "fp8_e4m3": torch.float8_e4m3fn,
+             "int8": torch.int8}
+
+
+def kv_storage_dtype(kv_dtype: str) -> torch.dtype:
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}; "
+                         f"one of {sorted(KV_DTYPES)}")
+    return KV_DTYPES[kv_dtype]
+
+
+def quant_decode_error(cfg: ModelConfig, kv_dtype: str):
+    """Why this config can NOT store KV quantized (None = compatible).
+    Only the GQA-paged dense/vlm families have the quantizing write path
+    and the dequantizing attention (DESIGN.md §10)."""
+    if kv_dtype == "bf16":
+        return None
+    if kv_dtype not in KV_DTYPES:
+        return f"unknown kv_dtype {kv_dtype!r}; one of {sorted(KV_DTYPES)}"
+    if cfg.family not in ("dense", "vlm"):
+        return (f"kv_dtype={kv_dtype!r} requires a GQA-paged family "
+                f"(dense/vlm), not {cfg.family!r}")
+    return None
 
 
 def decode_pool_shapes(cfg: ModelConfig, *, batch: int, num_blocks: int,
@@ -63,15 +86,25 @@ def decode_pool_shapes(cfg: ModelConfig, *, batch: int, num_blocks: int,
                        ) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """name -> (shape, dtype) of every decode-state buffer. Block 0 is
     scratch (never allocated by the pager). ``max_chunks > 0`` adds the
-    far-view summary pools far_k/far_v: (L, B, max_chunks, KV, hd). The
-    encdec family pages its decoder's self-attention K/V (dec_layers) and
-    holds the immutable cross K/V, (dec_layers, B, enc_len, KV, hd), with
-    each slot's valid encoder length ``enc_len`` (B,) int32."""
+    far-view summary pools far_k/far_v: (L, B, max_chunks, KV, hd).
+    ``kv_dtype`` other than ``"bf16"`` stores k/v narrow, with the f32
+    scale pools k_scale/v_scale: (L, num_blocks, KV). The encdec family
+    pages its decoder's self-attention K/V (dec_layers) and holds the
+    immutable cross K/V, (dec_layers, B, enc_len, KV, hd), with each slot's
+    valid encoder length ``enc_len`` (B,) int32."""
     _module(cfg)
-    _check_kv_dtype(kv_dtype)
+    err = quant_decode_error(cfg, kv_dtype)
+    if err is not None:
+        raise ValueError(err)
     L, KV, hd = n_paged_layers(cfg), cfg.n_kv_heads, cfg.head_dim
     shape = (L, num_blocks, block_tokens, KV, hd)
-    shapes = {"k": (shape, cm.DTYPE), "v": (shape, cm.DTYPE)}
+    store = kv_storage_dtype(kv_dtype)
+    shapes = {"k": (shape, store), "v": (shape, store)}
+    if kv_dtype != "bf16":
+        # sibling physical resource: indexed by the same block id, so
+        # alias/COW move data and scale chains together (§10)
+        shapes["k_scale"] = ((L, num_blocks, KV), torch.float32)
+        shapes["v_scale"] = ((L, num_blocks, KV), torch.float32)
     if cfg.family == "encdec":
         cross = (L, batch, enc_len, KV, hd)
         shapes["cross_k"] = (cross, cm.DTYPE)
@@ -92,9 +125,10 @@ def init_decode_pools(cfg: ModelConfig, *, device, **kw):
 
 def paged_payload_bytes_per_token(cfg: ModelConfig,
                                   kv_dtype: str = "bf16") -> int:
-    """Bytes/token/layer moved through the paged pool (bf16 storage)."""
-    _check_kv_dtype(kv_dtype)
-    return cfg.kv_width * 2
+    """Bytes/token/layer moved through the paged pool (storage width of
+    ``kv_dtype``; the per-block scale overhead is accounted separately —
+    ``KVRMEngine.scale_bytes_per_block``, DESIGN.md §10)."""
+    return cfg.kv_width * kv_storage_dtype(kv_dtype).itemsize
 
 
 def n_paged_layers(cfg: ModelConfig) -> int:

@@ -9,6 +9,10 @@ layer's new K/V is attended explicitly (``cur_k``/``cur_v``) and the whole
 step's K/V is scattered into the pools once after the loop (in place).
 In ``mode="full"`` each layer first summarizes a completed far-view chunk
 into its far pools (in place, gated per slot) and attends the far view.
+With the quantized tier (pools ``k_scale``/``v_scale`` present, DESIGN.md
+§10) attention dequantizes each layer's narrow pools through their scale
+pools, and the post-loop write quantizes at commit, data and scale pools
+together.
 """
 from __future__ import annotations
 
@@ -65,6 +69,7 @@ def prefill_chunk(params, cfg: ModelConfig, pools, descr):
     x = params["embed"][descr.tokens.long()]                    # (B, C, d)
     positions = descr.start_pos[:, None] + torch.arange(
         C, device=x.device, dtype=torch.int32)[None]            # (B, C)
+    quant = "k_scale" in pools                  # narrow KV tier (§10)
     ks, vs = [], []
     for li, layer in enumerate(params["layers"]):
         h = cm.rmsnorm(layer["ln1"], x, cfg.norm_eps)
@@ -74,17 +79,31 @@ def prefill_chunk(params, cfg: ModelConfig, pools, descr):
             q.contiguous(), pools["k"][li], pools["v"][li], k, v,
             descr.block_table, descr.window_base, descr.start_pos,
             descr.n_valid, near_window=sv.near_window,
-            skip_extent=sv.skip_extent)                         # (B, C, H, hd)
+            skip_extent=sv.skip_extent,
+            **_layer_scales(pools, li))                  # (B, C, H, hd)
         x = x + cm.dense(layer["attn"]["wo"], o.reshape(B, C, -1))
         h = cm.rmsnorm(layer["ln2"], x, cfg.norm_eps)
         x = x + cm.mlp_apply(layer["mlp"], h, cfg.mlp_act)
         ks.append(k)
         vs.append(v)
-    ops.pool_write_chunk(pools["k"], torch.stack(ks), descr.write_block,
-                         descr.write_offset, descr.n_valid)
-    ops.pool_write_chunk(pools["v"], torch.stack(vs), descr.write_block,
-                         descr.write_offset, descr.n_valid)
+    for name, vals in (("k", ks), ("v", vs)):
+        if quant:   # quantize at commit: data and scale pools together
+            ops.quant_pool_write_chunk(
+                pools[name], pools[name + "_scale"], torch.stack(vals),
+                descr.write_block, descr.write_offset, descr.n_valid)
+        else:
+            ops.pool_write_chunk(pools[name], torch.stack(vals),
+                                 descr.write_block, descr.write_offset,
+                                 descr.n_valid)
     return pools
+
+
+def _layer_scales(pools, li: int) -> dict:
+    """Layer ``li``'s dequantize scales, (P, KV) each (empty without the
+    quantized tier)."""
+    if "k_scale" not in pools:
+        return {}
+    return dict(k_scale=pools["k_scale"][li], v_scale=pools["v_scale"][li])
 
 
 # ---------------------------------------------------------------------------
@@ -96,13 +115,18 @@ def decode_step(params, cfg: ModelConfig, tokens, pools, descr):
 
     tokens: (B,) int32 current tokens. pools: dict with k, v:
     (L, P, BT, KV, hd); with the far view (``mode="full"``) also far_k,
-    far_v: (L, B, MAXC, KV, hd). descr: FrameDescriptor of int32 tensors.
+    far_v: (L, B, MAXC, KV, hd); with the quantized tier k, v narrow and
+    k_scale, v_scale: (L, P, KV) f32. descr: FrameDescriptor of int32
+    tensors.
     Returns (logits (B, V), pools, far_util) — the pools updated in place;
     far_util (B, CAP) f32 is the far entries' attention mass averaged over
     layers, None without the far view."""
     B = tokens.shape[0]
     sv = cfg.serving
     farview = "far_k" in pools
+    quant = "k_scale" in pools                  # narrow KV tier (§10)
+    assert not (farview and quant), \
+        "far view and the quantized KV tier are exclusive (DESIGN.md §10)"
     x = params["embed"][tokens.long()]                          # (B, d)
     if farview:
         rows = torch.arange(B, device=x.device)
@@ -133,7 +157,8 @@ def decode_step(params, cfg: ModelConfig, tokens, pools, descr):
             q, pools["k"][li], pools["v"][li], descr.block_table,
             descr.window_base, descr.seq_lens, descr.slot_active,
             near_window=sv.near_window, cur_k=k, cur_v=v,
-            skip_extent=sv.skip_extent, **far)
+            skip_extent=sv.skip_extent, **far,
+            **_layer_scales(pools, li))
         if farview:
             o, futil = o
             fu = futil if fu is None else fu + futil
@@ -142,10 +167,15 @@ def decode_step(params, cfg: ModelConfig, tokens, pools, descr):
         x = x + cm.mlp_apply(layer["mlp"], h, cfg.mlp_act)
         ks.append(k)
         vs.append(v)
-    ops.pool_write_stacked(pools["k"], torch.stack(ks), descr.write_block,
-                           descr.write_offset, descr.slot_active)
-    ops.pool_write_stacked(pools["v"], torch.stack(vs), descr.write_block,
-                           descr.write_offset, descr.slot_active)
+    for name, vals in (("k", ks), ("v", vs)):
+        if quant:   # quantize at commit: data and scale pools together
+            ops.quant_pool_write_stacked(
+                pools[name], pools[name + "_scale"], torch.stack(vals),
+                descr.write_block, descr.write_offset, descr.slot_active)
+        else:
+            ops.pool_write_stacked(pools[name], torch.stack(vals),
+                                   descr.write_block, descr.write_offset,
+                                   descr.slot_active)
     x = cm.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     if fu is not None:
         fu = fu / cfg.n_layers

@@ -5,8 +5,9 @@
 single-device lane). ``arch`` is ``"qwen2.5-32b"`` (dense) or
 ``"seamless-m4t-medium"`` (encoder-decoder). ``cfg=`` passes a full
 configuration (for example ``with_depth(get_config("qwen2.5-32b"), 8)``);
-without it the reduced config of ``arch`` is used, as in the reference. ``device=``
-defaults to ``"cuda"``.
+without it the reduced config of ``arch`` is used, as in the reference.
+``device=`` defaults to ``"cuda"``. Engine fields (``prefill_chunk``,
+``kv_dtype``, ...) pass through to :class:`EngineConfig`.
 
 Params are cached per (arch, seed, device) for the reduced config:
 ``init_params`` from the same seed is deterministic, so sharing the cache

@@ -163,7 +163,6 @@ def test_prefix_hint_alias_and_cow_match_live_reference():
 def test_unported_features_raise():
     tcfg, tparams = weights()["torch"]
     for kw, item in ((dict(pipeline_depth=1), "6b"), (dict(greedy=False), "6h"),
-                     (dict(kv_dtype="int8"), "6f"),
                      (dict(host_pool_blocks=8), "6d"),
                      (dict(prefix_cache=True), "6e"),
                      (dict(mesh=object()), "item 12")):
