@@ -21,6 +21,21 @@ Phases, in order; any failure raises and the script exits non-zero:
              port never calls: ``scaled_dot_product_attention`` on the
              gathered window (+ far entries), ``torch.mean`` over the
              gathered chunk), beside the bound.
+3b. decode_skew — the card's counterpart of bench_decode_skew.py's kernel
+             section at qwen2.5-32b decode width (B 8, H 40, KV 8, hd 128,
+             BT 16, W 512, NB 33, tail-adjacent tables, window base 0):
+             uniform, bimodal and trace lengths (one slot retired in each;
+             one more case on permuted tables) in bf16, f32 and fp8_e4m3 /
+             int8 pools, through the pool-only form (the current token in
+             the pool): the double-buffered kernel (``prefetch_depth=1``,
+             the port of ``_decode_kernel_db``) with ``dma`` on and off and
+             the pool-only ``_decode_kernel`` port, skip on and off, run
+             twice: all bitwise equal; against the plain version within
+             the kernels phase's tolerances (2e-2 for narrow pools); the
+             retired slot zero. Launches counted per dtype (zeroed just
+             before that dtype's run), then each variant's time beside the
+             active blocks' byte bound, the plain version and SDPA on the
+             gathered window, printed as one JSON line.
 4. serve   — ``repro_torch.launch.serve.main`` at full qwen2.5-32b width
              (8 layers by default), paged_merge, 16 mixed requests; every
              request finishes, one frame commit per step, the pager leaks
@@ -147,6 +162,11 @@ ENC_ULPS = 8
 TIE_MARGIN_ENCDEC = 0.125
 # the quantized KV tier: the narrow storage dtypes
 KV_DTYPES = ("fp8_e4m3", "int8")
+# decode_skew: bench_decode_skew.py's kernel geometry at qwen2.5-32b decode
+# width (NB = W / BT + 1 window blocks, P = B NB + 1 pool blocks); the q
+# dtypes, and the narrow pools (under bf16 q)
+SKEW = dict(B=8, H=40, KV=8, hd=128, BT=16, W=512)
+SKEW_KINDS = ("bfloat16", "float32") + KV_DTYPES
 
 
 def log(*a):
@@ -449,16 +469,17 @@ def block_bytes(d, BT):
     return byts, 0
 
 
-def decode_work(d, W, BT, elem):
+def decode_work(d, W, BT, elem, cur=True):
     """Bytes the decode function must move (each input once: q, the window
-    blocks in each active slot's extent, the current token, the output) and
-    its flops (QK and PV over each active slot's valid keys; the dequantize
-    of each walked block of a quantized pool)."""
+    blocks in each active slot's extent, the current token unless ``cur``
+    is False (the pool-only form), the output) and its flops (QK and PV
+    over each active slot's valid keys; the dequantize of each walked block
+    of a quantized pool)."""
     B, H, hd = d["q"].shape
     KV = d["pool_k"].shape[2]
     NB = d["block_table"].shape[1]
     per_block, deq = block_bytes(d, BT)
-    byts = 2 * B * H * hd * elem + 2 * B * KV * hd * elem
+    byts = 2 * B * H * hd * elem + (2 * B * KV * hd * elem if cur else 0)
     flops = 0
     for b in range(B):
         if int(d["slot_active"][b]) <= 0:
@@ -468,7 +489,7 @@ def decode_work(d, W, BT, elem):
         lo = min(max((lo_pos - wb) // BT, 0), NB)
         hi = max(min(max((t - wb) // BT + 1, 0), NB), lo)
         byts += (hi - lo) * per_block
-        n_keys = t - lo_pos + 1               # (t - W, t) plus the current token
+        n_keys = t - lo_pos + 1               # (t - W, t] with the current token
         flops += 4 * H * hd * n_keys + (hi - lo) * deq
     return byts, flops
 
@@ -533,24 +554,28 @@ def summarize_work(d, elem):
     return byts, flops
 
 
-def sdpa_decode(torch, d, W):
-    """One library call on the gathered window (+ the current token)."""
+def sdpa_decode(torch, d, W, cur=True):
+    """One library call on the gathered window (+ the current token; with
+    ``cur`` False the pool-only form's window, up to and with t)."""
     import torch.nn.functional as F
     B, H, hd = d["q"].shape
     P, BT, KV, _ = d["pool_k"].shape
     n_rep = H // KV
     tbl = d["block_table"].long()
     Wt = tbl.shape[1] * BT
-    k = torch.cat([d["pool_k"][tbl].reshape(B, Wt, KV, hd),
-                   d["cur_k"][:, None]], 1).permute(0, 2, 1, 3)
-    v = torch.cat([d["pool_v"][tbl].reshape(B, Wt, KV, hd),
-                   d["cur_v"][:, None]], 1).permute(0, 2, 1, 3)
-    k = k.repeat_interleave(n_rep, 1).contiguous()
-    v = v.repeat_interleave(n_rep, 1).contiguous()
+    k = d["pool_k"][tbl].reshape(B, Wt, KV, hd)
+    v = d["pool_v"][tbl].reshape(B, Wt, KV, hd)
+    if cur:
+        k = torch.cat([k, d["cur_k"][:, None]], 1)
+        v = torch.cat([v, d["cur_v"][:, None]], 1)
+    k = k.permute(0, 2, 1, 3).repeat_interleave(n_rep, 1).contiguous()
+    v = v.permute(0, 2, 1, 3).repeat_interleave(n_rep, 1).contiguous()
     pos = d["window_base"].long()[:, None] + torch.arange(Wt, device=k.device)
     t = d["seq_lens"].long()[:, None]
-    m = (pos < t) & (pos > t - W) & (pos >= 0)
-    m = torch.cat([m, torch.ones_like(m[:, :1])], 1)[:, None, None, :]
+    m = ((pos < t) if cur else (pos <= t)) & (pos > t - W) & (pos >= 0)
+    if cur:
+        m = torch.cat([m, torch.ones_like(m[:, :1])], 1)
+    m = m[:, None, None, :]
     q = d["q"][:, :, None, :]
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m)
 
@@ -893,6 +918,167 @@ def bound(byts, flops, dtype):
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=byts, flops=flops)
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: decode_skew, the double-buffered decode kernel's A/B
+# ---------------------------------------------------------------------------
+
+def skew_lengths(B, W, BT):
+    """bench_decode_skew.py's lengths, by name (numpy seed 3)."""
+    rng = np.random.default_rng(3)
+    return {"uniform": np.full(B, W - 1),
+            "bimodal": np.array([W - 1] + [BT + 15] * (B - 1)),
+            "trace": np.clip(rng.gamma(2.0, W / 8.0, size=B), 16, W - 1)}
+
+
+def skew_inputs(torch, dev, kind, lens, *, seed, permuted=False):
+    """Pool-only decode operands at SKEW: window base 0, tail-adjacent
+    tables (``permuted``: distinct random blocks), the last slot retired.
+    ``kind`` is the q dtype, or a narrow pool dtype under bf16 q (the
+    pools quantized per (block, kv head))."""
+    B, H, KV, hd, BT, W = (SKEW[k] for k in ("B", "H", "KV", "hd", "BT", "W"))
+    NB = W // BT + 1
+    P = B * NB + 1
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dtype = torch.float32 if kind == "float32" else torch.bfloat16
+    if permuted:
+        table = (torch.randperm(P - 1, generator=g)[:B * NB] + 1).view(B, NB)
+    else:
+        table = 1 + torch.arange(B)[:, None] * NB + torch.arange(NB)[None, :]
+    active = torch.ones(B, dtype=torch.int32)
+    active[-1] = 0
+    rn = lambda *s: torch.randn(*s, generator=g).to(dtype)
+    d = dict(q=rn(B, H, hd), pool_k=rn(P, BT, KV, hd),
+             pool_v=rn(P, BT, KV, hd), block_table=table.to(torch.int32),
+             window_base=torch.zeros(B, dtype=torch.int32),
+             seq_lens=torch.from_numpy(lens.astype(np.int32)),
+             slot_active=active)
+    d = {k: v.to(dev) for k, v in d.items()}
+    if kind in KV_DTYPES:
+        d = quant_inputs(torch, d, kind)
+    return d, W
+
+
+# the A/B's variants: (kernel, dma, skip_extent)
+SKEW_VARIANTS = [("db", True, True), ("db", True, False), ("db", False, True),
+                 ("db", False, False), ("nodb", None, True),
+                 ("nodb", None, False)]
+
+
+def skew_calls(pa, d, W):
+    """One call per variant: the double-buffered kernel (prefetch_depth=1)
+    with async copies and with synchronous loads, and the pool-only
+    non-db kernel, each with skip on and off."""
+    args = [d[k] for k in ("q", "pool_k", "pool_v", "block_table",
+                           "window_base", "seq_lens", "slot_active")]
+    kw = dict(near_window=W)
+    if "k_scale" in d:
+        kw.update(k_scale=d["k_scale"], v_scale=d["v_scale"])
+
+    def call(kernel, dma, skip):
+        return lambda: pa.paged_decode_attention(
+            *args, prefetch_depth=int(kernel == "db"), dma=dma,
+            skip_extent=skip, **kw)
+    return {v: call(*v) for v in SKEW_VARIANTS}, args, kw
+
+
+def bits(torch, x):
+    """A float tensor's bits as integers (bitwise comparisons)."""
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def phase_decode_skew(torch):
+    """Returns (kernel rows, launches) for the kernels line; prints the
+    A/B's JSON line."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref, runtime
+    dev = torch.device("cuda")
+    B, BT, W = SKEW["B"], SKEW["BT"], SKEW["W"]
+    NB = W // BT + 1
+    lengths = skew_lengths(B, W, BT)
+    rows, launches, entries = {}, {}, []
+    for kind in SKEW_KINDS:
+        cases = [(name, *skew_inputs(torch, dev, kind, lens, seed=8))
+                 for name, lens in lengths.items()]
+        cases.append(("trace_permuted", *skew_inputs(
+            torch, dev, kind, lengths["trace"], seed=9, permuted=True)))
+        # the A/B itself, with the counts zeroed just before and read
+        # just after
+        runtime.reset_launches()
+        outs = []
+        for name, d, W_ in cases:
+            calls, _, _ = skew_calls(pa, d, W_)
+            o = {v: fn() for v, fn in calls.items()}
+            o["again"] = calls[SKEW_VARIANTS[0]]()
+            outs.append(o)
+        torch.cuda.synchronize()
+        lm = dict(runtime.LAUNCHES)
+        n = len(cases)
+        assert lm["paged_decode_db"] == 5 * n and lm["paged_decode"] == 2 * n, \
+            f"decode_skew {kind}: launches {lm}"
+        key = "paged_decode_db" + ("" if kind == "bfloat16" else f"_{kind}")
+        launches[key] = lm["paged_decode_db"]
+        tol = TOL["float32" if kind == "float32" else "bfloat16"]
+        for (name, d, W_), o in zip(cases, outs):
+            tag = f"decode_skew {kind} {name}"
+            first = o[SKEW_VARIANTS[0]]
+            for v, out in o.items():
+                if not torch.equal(bits(torch, out), bits(torch, first)):
+                    raise AssertionError(f"{tag}: {v} != {SKEW_VARIANTS[0]} "
+                                         f"bitwise")
+            if not torch.isfinite(first).all():
+                raise AssertionError(f"{tag}: non-finite output")
+            if first[-1].any():
+                raise AssertionError(f"{tag}: the retired slot is not zero")
+            calls, args, kw = skew_calls(pa, d, W_)
+            want = pa.plain(*args, skip_extent=True, **kw)
+            err = (first.float() - want.float()).abs().max().item()
+            if not torch.allclose(first.float(), want.float(), **tol):
+                raise AssertionError(f"{tag} vs plain: max abs err {err}")
+            if name.endswith("permuted"):
+                log(f"{tag}: max_abs_err {err:.3e}; every variant bitwise "
+                    f"equal, retired slot zero")
+                continue
+            elem = d["q"].element_size()
+            byts, flops = decode_work(d, W_, BT, elem, cur=False)
+            b_ = bound(byts, flops,
+                       "float32" if kind == "float32" else "bfloat16")
+            lib = dequantized(torch, d, d["q"].dtype) if "k_scale" in d else d
+            lo, hi = ref.active_block_extent(
+                d["window_base"], d["seq_lens"], d["slot_active"],
+                near_window=W_, nb=NB, bt=BT)
+            e = dict(kind=kind, lengths=name, max_abs_err=err,
+                     active_blocks=int((hi - lo).sum()), padded_blocks=B * NB,
+                     db_ms=time_ms(torch, calls[("db", True, True)]),
+                     db_noskip_ms=time_ms(torch, calls[("db", True, False)]),
+                     db_sync_ms=time_ms(torch, calls[("db", False, True)]),
+                     nodb_ms=time_ms(torch, calls[("nodb", None, True)]),
+                     nodb_noskip_ms=time_ms(torch,
+                                            calls[("nodb", None, False)]),
+                     plain_ms=time_ms(torch, lambda: pa.plain(
+                         *args, skip_extent=True, **kw)),
+                     sdpa_ms=time_ms(torch, sdpa_decode(torch, lib, W_,
+                                                        cur=False)),
+                     bound_ms=b_["bound_ms"], bound_by=b_["bound_by"])
+            entries.append(e)
+            log(f"{tag}: db {e['db_ms']:.4f} ms (skip off "
+                f"{e['db_noskip_ms']:.4f}, sync loads {e['db_sync_ms']:.4f})"
+                f", non-db {e['nodb_ms']:.4f} (skip off "
+                f"{e['nodb_noskip_ms']:.4f}), plain {e['plain_ms']:.4f}, "
+                f"SDPA {e['sdpa_ms']:.4f}, bound {e['bound_ms']:.5f}; "
+                f"{e['active_blocks']} of {e['padded_blocks']} blocks; "
+                f"max_abs_err {err:.3e}; bitwise equal")
+            if name == "bimodal" and kind != "float32":
+                rows[key] = dict(
+                    route="cuda",
+                    source="src/repro_torch/kernels/csrc/paged_decode.cu",
+                    replaces="src/repro/kernels/paged_attention.py:131",
+                    max_abs_err=err, ms=e["db_ms"], plain_ms=e["plain_ms"],
+                    library_ms=e["sdpa_ms"], **b_)
+    log(json.dumps({"decode_skew": entries, "launches": launches,
+                    "card": nvidia_smi_line()}))
+    return rows, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1659,7 +1845,7 @@ def main(argv=None):
     ap.add_argument("--n-layers", type=int, default=8,
                     help="depth of the full-width serve phase (64 = all)")
     ap.add_argument("--phases",
-                    default="build,kernels,serve,serve_full,parity,"
+                    default="build,kernels,decode_skew,serve,serve_full,parity,"
                             "parity_full,serve_encdec,parity_encdec,"
                             "serve_quant,parity_quant",
                     help="comma-separated subset (the device phase always "
@@ -1697,6 +1883,10 @@ def main(argv=None):
     # kernel JSON row -> launches on the path that drives it, each path
     # with the counters zeroed just before it and read just after
     launches = {}
+    if "decode_skew" in phases:
+        skew_rows, skew_launches = phase_decode_skew(torch)
+        rows.update(skew_rows)
+        launches.update(skew_launches)
     merge_peak = None
     if "serve" in phases:
         lm, summary = phase_serve(torch, args.n_layers)

@@ -1,16 +1,25 @@
-"""Paged near-window decode attention: the CUDA kernel's wrapper and its
+"""Paged near-window decode attention: the CUDA kernels' wrapper and their
 plain PyTorch version.
 
 Counterpart of ``repro/kernels/paged_attention.py`` (the Pallas
-``_decode_kernel``). The kernel (``csrc/paged_decode.cu``) computes
-``ref.paged_decode_attention_ref`` with ``cur_k``/``cur_v`` — the
-engine's decode path, where the pool is read-only inside the layer loop
-and the current token is attended explicitly — and, in ``mode="full"``,
-the far view (``far_k``/``far_v``/``far_table``/``far_valid``) in the same
-softmax, returning ``(out, far_util)`` as the reference does. With the
+``_decode_kernel`` and ``_decode_kernel_db``). The kernel
+(``csrc/paged_decode.cu``) computes ``ref.paged_decode_attention_ref``
+with ``cur_k``/``cur_v`` — the engine's decode path, where the pool is
+read-only inside the layer loop and the current token is attended
+explicitly — and, in ``mode="full"``, the far view
+(``far_k``/``far_v``/``far_table``/``far_valid``) in the same softmax,
+returning ``(out, far_util)`` as the reference does. Without
+``cur_k``/``cur_v`` it computes the pool-only form, the Pallas kernels'
+own (the current token already in the pool, ``pos <= t``). With the
 quantized tier (DESIGN.md §10) the pools hold fp8_e4m3 or int8 codes and
 ``k_scale``/``v_scale`` (P, KV) f32 scale each physical block's codes as
 the kernel loads them (the ``quant=True`` branch of ``_decode_kernel``).
+
+``prefetch_depth=1`` launches the double-buffered kernel, the port of
+``_decode_kernel_db``: the pool-only form with no far view, each next
+block's K/V staged in shared memory by ``cp.async`` (``dma=False``: the
+same two stages, loaded synchronously), bitwise equal to the pool-only
+``prefetch_depth=0`` kernel.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises. Nothing falls back.
@@ -26,6 +35,7 @@ from repro_torch.kernels import ref, runtime
 
 NAME = "paged_decode"
 QUANT = NAME + "_quant"          # launch counter of the quantized branch
+DB = NAME + "_db"                # launch counter of the double-buffered kernel
 THREADS = 128
 MAX_SMEM = 227 * 1024            # H100 dynamic shared memory per block
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -55,8 +65,12 @@ def _lib():
                 fn = entry(lib, NAME, q, pool)
                 fn.argtypes = [P] * 17 + [I] * 10 + [ctypes.c_float, I, P]
                 fn.restype = I
-        lib.paged_decode_smem_bytes.argtypes = [I, I, I, I]
-        lib.paged_decode_smem_bytes.restype = ctypes.c_size_t
+                fn = entry(lib, DB, q, pool)
+                fn.argtypes = [P] * 10 + [I] * 9 + [ctypes.c_float, I, P]
+                fn.restype = I
+        for fn in (lib.paged_decode_smem_bytes, lib.paged_decode_db_smem_bytes):
+            fn.argtypes = [I, I, I, I]
+            fn.restype = ctypes.c_size_t
         _argtypes_set = True
     return lib
 
@@ -106,12 +120,15 @@ def _check(q, pool_k, pool_v, block_table, window_base, seq_lens,
         raise TypeError(f"kernel takes bf16 or f32, not {q.dtype}")
     _check_quant(q, pool_k, pool_v, k_scale, v_scale,
                  far=far_k is not None)
-    for name, x, shape in (("cur_k", cur_k, (B, KV, hd)),
-                           ("cur_v", cur_v, (B, KV, hd))):
+    # the current token (absent in the pool-only form)
+    cur = [(n, x) for n, x in (("cur_k", cur_k), ("cur_v", cur_v))
+           if x is not None]
+    for name, x in cur:
         if x.dtype != q.dtype:
             raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if tuple(x.shape) != (B, KV, hd):
+            raise ValueError(f"{name} must be {(B, KV, hd)}, got "
+                             f"{tuple(x.shape)}")
     if block_table.dim() != 2 or block_table.shape[0] != B:
         raise ValueError("block_table must be (B, NB)")
     for name, x in (("block_table", block_table), ("window_base", window_base),
@@ -120,8 +137,7 @@ def _check(q, pool_k, pool_v, block_table, window_base, seq_lens,
             raise TypeError(f"{name} must be int32, got {x.dtype}")
         if x is not block_table and tuple(x.shape) != (B,):
             raise ValueError(f"{name} must be ({B},), got {tuple(x.shape)}")
-    for name, x in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
-                    ("cur_k", cur_k), ("cur_v", cur_v),
+    for name, x in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v), *cur,
                     ("block_table", block_table), ("window_base", window_base),
                     ("seq_lens", seq_lens), ("slot_active", slot_active)):
         if x.device != q.device:
@@ -155,22 +171,67 @@ def _check(q, pool_k, pool_v, block_table, window_base, seq_lens,
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_smem(smem: int, n_rep: int, hd: int, BT: int, CAP: int = 0):
+    if smem > MAX_SMEM:
+        raise ValueError(f"shape needs {smem} B of shared memory "
+                         f"(> {MAX_SMEM}): n_rep={n_rep} hd={hd} BT={BT} "
+                         f"CAP={CAP}")
+
+
+def _check_form(pool_k, pool_v, cur_k, cur_v, far_k, prefetch_depth: int,
+                dma: bool):
+    """What each kernel takes, checked on every device (before the CPU's
+    plain path, so a call fails alike in the tests and on the card): cur_k
+    and cur_v go together and the far view needs them; prefetch_depth=1
+    takes the pool-only form without the far view and, with ``dma``, 16-byte
+    stage rows (hd x element size) and 16-byte-aligned pools."""
+    if prefetch_depth not in (0, 1):
+        raise ValueError(f"prefetch_depth must be 0 or 1, got {prefetch_depth}")
+    if (cur_k is None) != (cur_v is None):
+        raise ValueError("cur_k and cur_v go together")
+    if prefetch_depth == 0:
+        if far_k is not None and cur_k is None:
+            raise ValueError("the far view takes the current token (cur_k, "
+                             "cur_v): no pool-only form with the far view")
+        return
+    if cur_k is not None:
+        raise ValueError("prefetch_depth=1 computes the pool-only form (the "
+                         "current token already in the pool): no cur_k/cur_v")
+    if far_k is not None:
+        raise ValueError("prefetch_depth=1 takes no far view")
+    if not dma:
+        return
+    row = pool_k.shape[-1] * pool_k.element_size()
+    if row % 16:
+        raise ValueError(f"dma stages rows of hd x {pool_k.element_size()} = "
+                         f"{row} B, not a multiple of 16 B (pass dma=False)")
+    for name, x in (("pool_k", pool_k), ("pool_v", pool_v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"dma needs {name} 16-byte aligned, its data "
+                             f"starts at {x.data_ptr():#x} (pass dma=False)")
+
 def paged_decode_attention(q, pool_k, pool_v, block_table, window_base,
                            seq_lens, slot_active, *, near_window: int,
-                           cur_k, cur_v, far_k=None, far_v=None,
+                           cur_k=None, cur_v=None, far_k=None, far_v=None,
                            far_table=None, far_valid=None,
                            k_scale=None, v_scale=None,
-                           skip_extent: bool = True):
+                           skip_extent: bool = True, prefetch_depth: int = 0,
+                           dma: bool | None = None):
     """q: (B, H, hd); pool_k/pool_v: (P, BT, KV, hd) in q's dtype, or
     fp8_e4m3 / int8 codes with k_scale/v_scale (P, KV) f32; block_table:
     (B, NB) int32; window_base/seq_lens/slot_active: (B,) int32;
-    cur_k/cur_v: (B, KV, hd); far view (optional, all four or none, not
-    with a quantized pool): far_k/far_v (B, MAXC, KV, hd),
-    far_table/far_valid (B, CAP) int32. Returns (B, H, hd) in q's dtype;
-    with the far view ``(out, far_util)``, far_util (B, CAP) f32."""
+    cur_k/cur_v: (B, KV, hd), or None for the pool-only form; far view
+    (optional, all four or none, with cur_k/cur_v, not with a quantized
+    pool): far_k/far_v (B, MAXC, KV, hd), far_table/far_valid (B, CAP)
+    int32. ``prefetch_depth=1``: the double-buffered kernel (pool-only, no
+    far view); ``dma`` None or True stages by async copy, False by
+    synchronous loads (the same result, bitwise). Returns (B, H, hd) in q's
+    dtype; with the far view ``(out, far_util)``, far_util (B, CAP) f32."""
     far = dict(far_k=far_k, far_v=far_v, far_table=far_table,
                far_valid=far_valid)
     scales = dict(k_scale=k_scale, v_scale=v_scale)
+    dma = True if dma is None else bool(dma)
+    _check_form(pool_k, pool_v, cur_k, cur_v, far_k, prefetch_depth, dma)
     if q.device.type == "cpu":
         return plain(q, pool_k, pool_v, block_table, window_base, seq_lens,
                      slot_active, near_window=near_window, cur_k=cur_k,
@@ -182,20 +243,30 @@ def paged_decode_attention(q, pool_k, pool_v, block_table, window_base,
     B, H, hd = q.shape
     P, BT, KV, _ = pool_k.shape
     NB = block_table.shape[1]
+    lib = _lib()
+    p = runtime.ptr
+    out = torch.empty_like(q)
+    if prefetch_depth:
+        smem = lib.paged_decode_db_smem_bytes(H // KV, hd, BT,
+                                              pool_k.element_size())
+        _check_smem(smem, H // KV, hd, BT)
+        status = entry(lib, DB, q.dtype, pool_k.dtype)(
+            p(q), p(pool_k), p(pool_v), p(block_table), p(window_base),
+            p(seq_lens), p(slot_active), p(k_scale), p(v_scale), p(out),
+            B, H, KV, hd, BT, NB, int(near_window), int(bool(skip_extent)),
+            int(dma), 1.0 / math.sqrt(hd), THREADS,
+            runtime.stream_ptr(q.device))
+        runtime.check_status(DB, status)
+        runtime.count_launch(DB)
+        return out
     MAXC, CAP = (0, 0) if far_k is None else (far_k.shape[1],
                                               far_table.shape[1])
-    lib = _lib()
     smem = lib.paged_decode_smem_bytes(H // KV, hd, BT, CAP)
-    if smem > MAX_SMEM:
-        raise ValueError(f"shape needs {smem} B of shared memory "
-                         f"(> {MAX_SMEM}): n_rep={H // KV} hd={hd} BT={BT} "
-                         f"CAP={CAP}")
-    out = torch.empty_like(q)
+    _check_smem(smem, H // KV, hd, BT, CAP)
     # per-(slot, kv head) partials, summed below in a fixed order
     util = (None if far_k is None else
             torch.empty(B, KV, CAP, dtype=torch.float32, device=q.device))
     fn = entry(lib, NAME, q.dtype, pool_k.dtype)
-    p = runtime.ptr
     status = fn(p(q), p(pool_k), p(pool_v), p(block_table), p(window_base),
                 p(seq_lens), p(slot_active), p(cur_k), p(cur_v), p(k_scale),
                 p(v_scale), p(far_k), p(far_v), p(far_table), p(far_valid),

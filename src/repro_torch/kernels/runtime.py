@@ -13,10 +13,11 @@ whether the hand-written CUDA kernels are built.
   loaded with ``ctypes``. The library is named by a hash of the sources
   and flags, so a stale build is never loaded. ``build`` starts one
   ``nvcc`` per source, all at once.
-* ``LAUNCHES`` — one counter per kernel, and one per branch that runs
-  its own instantiation (``BRANCHES``: the quantized tier's). A wrapper
-  adds one where it launches its kernel and nowhere else; a launch of a
-  branch counts for the branch and for its kernel.
+* ``LAUNCHES`` — one counter per kernel (``SOURCES``, and ``SHARED``:
+  kernels built from another kernel's source), and one per branch that
+  runs its own instantiation (``BRANCHES``: the quantized tier's). A
+  wrapper adds one where it launches its kernel and nowhere else; a launch
+  of a branch counts for the branch and for its kernel.
 """
 from __future__ import annotations
 
@@ -44,10 +45,15 @@ SOURCES = {
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# kernels built from another kernel's source, counted on their own (the
+# double-buffered decode kernel, in paged_decode.cu)
+SHARED = ("paged_decode_db",)
+
 # kernel branches counted on their own (each also counts as its kernel)
 BRANCHES = ("paged_decode_quant", "chunked_prefill_quant")
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, *BRANCHES)}
+LAUNCHES: Dict[str, int] = {name: 0
+                            for name in (*SOURCES, *SHARED, *BRANCHES)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
