@@ -10,8 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              with nvcc for sm_90a, one process per source, timed.
 3. kernels — on the card, each kernel against its plain PyTorch version at
              the parity shapes and at full qwen2.5-32b width, in bf16
-             (atol = rtol = 2e-2: the plain version rounds p to bf16 before
-             P·V as the reference does, the kernel keeps f32) and f32
+             (atol = rtol = 2e-2: the plain version rounds scores and p to
+             bf16 as the reference does; the paged kernels keep both f32,
+             the dense prefill kernel's tensor-core path rounds p and keeps
+             the scores) and f32
              (atol 1e-4); the decode kernel also with the far view (its
              far_util within 1e-4), the summarize kernel within one bf16
              ulp / 1e-5 in f32; skip-extent on and off bitwise equal, a far
@@ -20,7 +22,15 @@ Phases, in order; any failure raises and the script exits non-zero:
              plain version and one PyTorch library call (a yardstick the
              port never calls: ``scaled_dot_product_attention`` on the
              gathered window (+ far entries), ``torch.mean`` over the
-             gathered chunk), beside the bound.
+             gathered chunk), beside the bound. The dense prefill kernel
+             also at its edges (``gqa_ragged``: 64-row blocks starting
+             inside a token's n_rep group, a ragged last key tile;
+             ``encoder_short``: S 1), in bf16 at every head size it takes
+             (16-256, S 77, n_rep 2), its bf16 shared-memory figure held
+             against the source's at hd 64 and 128, and an encoder-length
+             row: S 64, 250, 500 and 1000 at the encoder's shape, the bf16
+             kernel's time beside SDPA's, the bound and the f32 entry's,
+             printed as one JSON line with the card.
 3b. decode_skew — the card's counterpart of bench_decode_skew.py's kernel
              section at qwen2.5-32b decode width (B 8, H 40, KV 8, hd 128,
              BT 16, W 512, NB 33, tail-adjacent tables, window base 0):
@@ -152,7 +162,8 @@ TIE_MARGIN_FULL = 0.125
 # (1.8e-4 measured on an H100)
 FAR_UTIL_STEP_TOL = 1e-2
 # encdec, kernel vs plain path: the kernel keeps the encoder's attention
-# scores in f32 where the plain version rounds them (and p) to bf16, so
+# scores in f32 where the plain version rounds them to bf16, and rounds p to
+# bf16 before normalising where the plain version rounds it after, so
 # each encoder layer's output may round a few ulps apart and the cross K/V
 # carry those roundings. Held in bf16 ulps of each token row's scale (max
 # |x| over d_model, or over all heads of K or V)
@@ -160,6 +171,9 @@ ENC_ULPS = 8
 # decoder logits on identical decoder inputs differ through those cross
 # K/V; streams may part where the plain top-2 margin is below this
 TIE_MARGIN_ENCDEC = 0.125
+# serve_encdec's utterance lengths (S_enc uniform in 64-1000): the dense
+# prefill kernel at the encoder's shape across that range
+ENC_LENGTHS = (64, 250, 500, 1000)
 # the quantized KV tier: the narrow storage dtypes
 KV_DTYPES = ("fp8_e4m3", "int8")
 # decode_skew: bench_decode_skew.py's kernel geometry at qwen2.5-32b decode
@@ -704,6 +718,56 @@ def sdpa_dense(torch, d, causal, window):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m)
 
 
+def check_mma_smem(pfa):
+    """The wrapper's shared-memory figure of the bf16 kernel equals the
+    source's (the launch takes the source's; the wrapper raises on its)."""
+    lib = pfa._flash_lib()
+    for hd in (64, 128):
+        want = lib.prefill_flash_mma_smem_bytes(hd)
+        if pfa.mma_smem_bytes(hd) != want:
+            raise AssertionError(f"prefill_flash smem at hd {hd}: wrapper "
+                                 f"{pfa.mma_smem_bytes(hd)}, source {want}")
+        log(f"prefill_flash bf16 shared memory at hd {hd}: {want} B, "
+            f"wrapper == source")
+
+
+def dense_head_sizes(torch, pfa, dev):
+    """The bf16 kernel at every head size it takes (a multiple of 16 up to
+    256, one instantiation each), non-causal over a full and a ragged key
+    tile with n_rep 2, checked as in the kernels phase."""
+    errs = {}
+    for hd in range(16, 257, 16):
+        shp = dict(B=1, S=77, H=4, KV=2, hd=hd, causal=False, window=None)
+        _, errs[hd] = check_dense(torch, pfa, dev, torch.bfloat16, shp,
+                                  seed=9)
+    log("prefill_flash bf16 at hd 16-256 (S 77, n_rep 2): max_abs_err "
+        + ", ".join(f"{hd} {e:.3e}" for hd, e in errs.items())
+        + "; run == run bitwise")
+
+
+def encoder_lengths(torch, pfa, dev):
+    """The bf16 kernel at the encoder's shape for each of ``ENC_LENGTHS``:
+    checked as in the kernels phase, then its time beside SDPA's, the bound
+    and the f32 entry's; one JSON line with the card."""
+    out = []
+    for S in ENC_LENGTHS:
+        shp = dict(B=1, S=S, H=16, KV=16, hd=64, causal=False, window=None)
+        kw = dict(causal=False, window=None)
+        d, err = check_dense(torch, pfa, dev, torch.bfloat16, shp, seed=8)
+        d32 = dense_inputs(torch, dev, torch.float32, seed=8, **shp)
+        byts, flops = dense_work(d, elem=2, **kw)
+        out.append(dict(
+            S=S, max_abs_err=err,
+            ms=time_ms(torch, lambda: pfa.prefill_attention(
+                d["q"], d["k"], d["v"], **kw)),
+            sdpa_ms=time_ms(torch, sdpa_dense(torch, d, **kw)),
+            f32_ms=time_ms(torch, lambda: pfa.prefill_attention(
+                d32["q"], d32["k"], d32["v"], **kw)),
+            **bound(byts, flops, "bfloat16")))
+    log(json.dumps({"prefill_flash_encoder_lengths": out,
+                    "card": nvidia_smi_line()}))
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import farview_summarize as fvs
     from repro_torch.kernels import paged_attention as pa
@@ -735,6 +799,12 @@ def phase_kernels(torch):
                               window=5),
         "parity_window": dict(B=2, S=37, H=4, KV=2, hd=16, causal=False,
                               window=7),
+        # the bf16 kernel's edges: 64-row blocks that start inside a
+        # token's n_rep group (n_rep 5) and a ragged last key tile; and S 1
+        "gqa_ragged": dict(B=2, S=77, H=40, KV=8, hd=128, causal=True,
+                           window=17),
+        "encoder_short": dict(B=1, S=1, H=16, KV=16, hd=64, causal=False,
+                              window=None),
     }
     chk_shapes = {
         "parity": dict(B=4, C=8, H=4, KV=2, hd=16, BT=8, NB=3, P=40,
@@ -758,6 +828,8 @@ def phase_kernels(torch):
                      n_tokens=[64, 0, 0, 64, 64, 0, 0, 0],
                      gate=[1, 0, 0, 1, 1, 0, 0, 0]),
     }
+    check_mma_smem(pfa)
+    dense_head_sizes(torch, pfa, dev)
     res = {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, far_shp in far_shapes.items():
@@ -903,6 +975,7 @@ def phase_kernels(torch):
                 d["q"], d["k"], d["v"], **kw)),
             library_ms=time_ms(torch, sdpa_dense(torch, d, **kw)),
             **bound(byts, flops, "bfloat16"))
+    encoder_lengths(torch, pfa, dev)
     for k, r in rows.items():
         lib = ("library (SDPA on the dequantized window, dequantize "
                "excluded)" if k.endswith(KV_DTYPES) else "library")

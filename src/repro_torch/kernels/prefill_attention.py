@@ -15,8 +15,12 @@ Pallas kernels:
   optional causal and window masks (``csrc/prefill_flash.cu``): the
   encoder's attention. Its plain version is what the reference's
   ``gqa_full`` computes (``attention_dense``, ``attention_blocked`` above
-  S 1024); the kernel keeps the scores in f32 as ``_prefill_kernel`` does,
-  where ``attention_dense`` rounds them to bf16.
+  S 1024). In bf16 the kernel runs on the tensor cores (``mma.sync``
+  tiles fed by a ``cp.async`` ring, ``csrc/mma_tile.cuh``) for hd a
+  multiple of 16 up to 256; it keeps the scores in f32 as
+  ``_prefill_kernel`` does, where ``attention_dense`` rounds them to bf16,
+  and rounds p to bf16 before P·V as ``attention_dense`` does. In f32 it
+  runs on CUDA cores.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises. Nothing falls back.
@@ -146,7 +150,10 @@ def chunked_prefill_attention(q, pool_k, pool_v, cur_k, cur_v, block_table,
 
 FLASH = "prefill_flash"
 FLASH_BLOCK_M = 64               # query rows (token, grouped head) per block
-FLASH_KEY_TILES = (64, 32, 16)   # key tile: the largest whose smem fits
+FLASH_KEY_TILES = (64, 32, 16)   # f32 key tile: the largest whose smem fits
+MMA_KEYS = 64                    # bf16 key tile (two stages of K and of V)
+MMA_PAD = 8                      # bf16 elements added to each smem row
+MMA_THREADS = 128                # 4 warps of 16 query rows
 MAX_GRID_Z = 65535
 _flash_argtypes_set = False
 
@@ -161,16 +168,41 @@ def prefill_plain(q, k, v, *, causal=True, window=None):
     return attention_dense(q, k, v, causal=causal, window=window)
 
 
+def mma_smem_bytes(hd: int) -> int:
+    """Shared memory of the bf16 kernel: the Q tile and two stages each of
+    K and V, bf16 rows padded by ``MMA_PAD`` (the source's
+    ``prefill_flash_mma_smem_bytes``)."""
+    return (FLASH_BLOCK_M + 4 * MMA_KEYS) * (hd + MMA_PAD) * 2
+
+
+def mma_launch(B: int, S: int, H: int, KV: int, hd: int):
+    """(grid, threads, shared-memory bytes) of the bf16 kernel at this
+    shape; raises where the grid or the shared memory does not fit."""
+    z = -(-S * (H // KV) // FLASH_BLOCK_M)
+    if z > MAX_GRID_Z:
+        raise ValueError(f"S * n_rep = {S * (H // KV)} exceeds the grid")
+    smem = mma_smem_bytes(hd)
+    if smem > MAX_SMEM:
+        raise ValueError(f"hd={hd} needs {smem} B of shared memory "
+                         f"(> {MAX_SMEM})")
+    return (B, KV, z), MMA_THREADS, smem
+
+
 def _flash_lib():
     global _flash_argtypes_set
     lib = runtime.load(FLASH)
     if not _flash_argtypes_set:
         P, I = ctypes.c_void_p, ctypes.c_int
+        lib.prefill_flash_bf16.argtypes = ([P] * 4 + [I] * 7
+                                           + [ctypes.c_float, P])
+        lib.prefill_flash_f32.argtypes = ([P] * 4 + [I] * 7
+                                          + [ctypes.c_float, I, I, I, P])
         for fn in (lib.prefill_flash_bf16, lib.prefill_flash_f32):
-            fn.argtypes = [P] * 4 + [I] * 7 + [ctypes.c_float, I, I, I, P]
             fn.restype = I
         lib.prefill_flash_smem_bytes.argtypes = [I, I, I]
         lib.prefill_flash_smem_bytes.restype = ctypes.c_size_t
+        lib.prefill_flash_mma_smem_bytes.argtypes = [I]
+        lib.prefill_flash_mma_smem_bytes.restype = ctypes.c_size_t
         _flash_argtypes_set = True
     return lib
 
@@ -204,6 +236,14 @@ def _check_dense(q, k, v) -> None:
             raise ValueError(f"{name} must be contiguous")
     if hd > 256:
         raise ValueError(f"kernel takes hd <= 256 (got {hd})")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel: 16-wide k-steps, 16-byte cp.async rows
+        if hd % 16:
+            raise ValueError(f"bf16 kernel takes hd a multiple of 16 up to "
+                             f"256 (got {hd})")
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
     if -(-S * (H // KV) // FLASH_BLOCK_M) > MAX_GRID_Z:
         raise ValueError(f"S * n_rep = {S * (H // KV)} exceeds the grid")
 
@@ -221,20 +261,25 @@ def prefill_attention(q, k, v, *, causal: bool = True, window=None
     _check_dense(q, k, v)
     B, S, H, hd = q.shape
     KV = k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        mma_launch(B, S, H, KV, hd)      # raises where the launch cannot fit
     lib = _flash_lib()
-    kt = next((t for t in FLASH_KEY_TILES
-               if lib.prefill_flash_smem_bytes(FLASH_BLOCK_M, hd, t)
-               <= MAX_SMEM), None)
-    if kt is None:
-        raise ValueError(f"no key tile fits {MAX_SMEM} B of shared memory "
-                         f"at hd={hd}")
     out = torch.empty_like(q)
-    fn = (lib.prefill_flash_bf16 if q.dtype == torch.bfloat16
-          else lib.prefill_flash_f32)
     p = runtime.ptr
-    status = fn(p(q), p(k), p(v), p(out), B, S, H, KV, hd, int(bool(causal)),
-                int(window or 0), 1.0 / math.sqrt(hd), FLASH_BLOCK_M, kt,
-                THREADS, runtime.stream_ptr(q.device))
+    args = (p(q), p(k), p(v), p(out), B, S, H, KV, hd, int(bool(causal)),
+            int(window or 0), 1.0 / math.sqrt(hd))
+    if bf16:
+        status = lib.prefill_flash_bf16(*args, runtime.stream_ptr(q.device))
+    else:
+        kt = next((t for t in FLASH_KEY_TILES
+                   if lib.prefill_flash_smem_bytes(FLASH_BLOCK_M, hd, t)
+                   <= MAX_SMEM), None)
+        if kt is None:
+            raise ValueError(f"no key tile fits {MAX_SMEM} B of shared "
+                             f"memory at hd={hd}")
+        status = lib.prefill_flash_f32(*args, FLASH_BLOCK_M, kt, THREADS,
+                                       runtime.stream_ptr(q.device))
     runtime.check_status(FLASH, status)
     runtime.count_launch(FLASH)
     return out
