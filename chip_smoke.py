@@ -86,9 +86,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              KV of the same blocks as serve's at the narrow block size.
 11. parity_quant — the serve trace at full width with 2 layers and each
              narrow dtype, the kernel path and the plain path stepped in
-             lockstep: after every step, layer 0's codes and scales of each
-             block written by a request whose tokens agree in both runs are
-             bitwise equal, logits within ``LOGIT_TOL``, streams part only
+             lockstep: after every step, layer 0's codes of the rows
+             written by a request whose tokens agree in both runs, and its
+             blocks' scales, are bitwise equal (the blocks' unwritten rows
+             equal in value: a recycled block's fp8 zeros keep its previous
+             owner's signs), logits within ``LOGIT_TOL``, streams part only
              below ``TIE_MARGIN``; steps, frames and pager stats equal a
              CPU run.
 
@@ -176,6 +178,13 @@ TIE_MARGIN_ENCDEC = 0.125
 ENC_LENGTHS = (64, 250, 500, 1000)
 # the quantized KV tier: the narrow storage dtypes
 KV_DTYPES = ("fp8_e4m3", "int8")
+# the bf16 chunk kernel at the main path's shape (C 64, qwen2.5-32b width),
+# beside TOL: max abs err against the plain version no larger than the
+# CUDA-core kernel it replaced measured there (1.5625e-2 with each pool,
+# one bf16 ulp at |x| in [2, 4); H100 80GB HBM3)
+CHUNK_FULL_ATOL = {"chunked_prefill": 1.5625e-2,
+                   "chunked_prefill_fp8_e4m3": 1.5625e-2,
+                   "chunked_prefill_int8": 1.5625e-2}
 # decode_skew: bench_decode_skew.py's kernel geometry at qwen2.5-32b decode
 # width (NB = W / BT + 1 window blocks, P = B NB + 1 pool blocks); the q
 # dtypes, and the narrow pools (under bf16 q)
@@ -768,7 +777,164 @@ def encoder_lengths(torch, pfa, dev):
                     "card": nvidia_smi_line()}))
 
 
-def phase_kernels(torch):
+def chunk_sweep_shapes():
+    """Shapes of the bf16 chunk kernel's sweep. Each has an idle slot
+    (n_valid 0) and one at start_pos 0 (no context)."""
+    shapes = {}
+    # every head size it takes: n_rep 2, BT 16, W 128, C * n_rep = 74 (a
+    # ragged last row block)
+    for hd in range(16, 257, 16):
+        shapes[f"hd{hd}"] = dict(B=4, C=37, H=4, KV=2, hd=hd, BT=16, NB=9,
+                                 P=48, start_pos=[0, 45, 130, 300],
+                                 n_valid=[37, 20, 0, 29])
+    # block sizes at hd 128, W 192: 24 does not divide the 64-key tile
+    for bt in (8, 16, 32, 24):
+        nb = 192 // bt + 1
+        shapes[f"bt{bt}"] = dict(B=4, C=48, H=4, KV=2, hd=128, BT=bt, NB=nb,
+                                 P=4 * nb + 4, start_pos=[0, 70, 200, 333],
+                                 n_valid=[48, 48, 0, 31])
+    # n_rep 1 and 5, C * n_rep = 45 and 225 (row blocks starting inside a
+    # token's group of heads)
+    for n_rep in (1, 5):
+        shapes[f"nrep{n_rep}"] = dict(B=4, C=45, H=2 * n_rep, KV=2, hd=128,
+                                      BT=16, NB=9, P=48,
+                                      start_pos=[0, 45, 130, 300],
+                                      n_valid=[45, 20, 0, 45])
+    return shapes
+
+
+def chunk_sweep(torch, pfa, dev):
+    """The bf16 chunk kernel over :func:`chunk_sweep_shapes` with bf16,
+    fp8_e4m3 and int8 pools, checked as in the kernels phase; a head size
+    whose shared memory (the library's figure) does not fit must raise the
+    wrapper's ValueError."""
+    lib = pfa._lib()
+    for kvd in (None,) + KV_DTYPES:
+        errs = {}
+        for name, shp in chunk_sweep_shapes().items():
+            need = lib.chunked_prefill_mma_smem_bytes(shp["hd"],
+                                                      int(kvd is not None))
+            if need > pfa.MAX_SMEM:
+                try:
+                    check_chunk(torch, pfa, dev, torch.bfloat16, shp,
+                                seed=10, kv_dtype=kvd)
+                except ValueError:
+                    errs[name] = "ValueError"
+                    continue
+                raise AssertionError(f"chunked_prefill {name} ({kvd}) needs "
+                                     f"{need} B of shared memory and ran")
+            _, _, err = check_chunk(torch, pfa, dev, torch.bfloat16, shp,
+                                    seed=10, kv_dtype=kvd)
+            errs[name] = f"{err:.3e}"
+        log(f"chunked_prefill bf16 sweep ({kvd or 'bf16 pool'}): max_abs_err "
+            + ", ".join(f"{k} {v}" for k, v in errs.items())
+            + "; skip on == off, run == run, bitwise")
+
+
+def check_chunk_tight(err, key):
+    """The bf16 chunk kernel at the main path's shape within
+    ``CHUNK_FULL_ATOL`` (beside ``TOL``)."""
+    limit = CHUNK_FULL_ATOL[key]
+    if not err <= limit:
+        raise AssertionError(f"{key} at the main path's shape: max abs err "
+                             f"{err} > {limit}")
+
+
+def parent_chunk_lib(parent):
+    """The chunk kernel's library built from another checkout's
+    ``chunked_prefill.cu`` (``parent``: an unpacked tree), with the port's
+    nvcc flags; its bf16 entries bound as the wrapper binds them."""
+    import ctypes
+    from repro_torch.kernels import runtime
+    csrc = Path(parent).resolve() / "src" / "repro_torch" / "kernels" / "csrc"
+    runtime.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = runtime.BUILD_DIR / "libchunked_prefill-parent.so"
+    subprocess.run([runtime.nvcc_path(), *runtime.NVCC_FLAGS, "-I", str(csrc),
+                    "-o", str(out), str(csrc / "chunked_prefill.cu")],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for q in ("bf16", "f32"):
+        for suffix in ("", "_fp8", "_int8"):
+            fn = getattr(lib, f"chunked_prefill_{q}{suffix}")
+            fn.argtypes = [P] * 12 + [I] * 9 + [ctypes.c_float, I, I, P]
+            fn.restype = I
+    return lib
+
+
+def chunk_ab(torch, pfa, res, parent, shape):
+    """Parent, change, change, parent at the main path's chunk shape for
+    each pool type with bf16 q (the tensor-core kernel; SDPA and the bound
+    beside them), then with f32 q (the CUDA-core kernel, unchanged), in one
+    call: the other checkout's kernel called through its own C entry with
+    the wrapper's arguments; both held against the plain version (max abs
+    err and row-scale bf16 ulps); one JSON line with the card."""
+    import math
+    from repro_torch.kernels import runtime
+    lib = parent_chunk_lib(parent)
+    dev = torch.device("cuda")
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for kvd, suffix, seed in ((None, "", 2), ("fp8_e4m3", "_fp8", 7),
+                                  ("int8", "_int8", 7)):
+            key = "chunked_prefill" + (f"_{kvd}" if kvd else "")
+            if dtype == torch.bfloat16:
+                d, W, _, BT = res[key]
+            else:
+                d, W = chunk_inputs(torch, dev, dtype, seed=seed, **shape)
+                if kvd is not None:
+                    d = quant_inputs(torch, d, kvd)
+                BT = shape["BT"]
+            args = [d[k] for k in ("q", "pool_k", "pool_v", "cur_k", "cur_v",
+                                   "block_table", "window_base", "start_pos",
+                                   "n_valid")]
+            kw = dict(near_window=W, skip_extent=True)
+            if "k_scale" in d:
+                kw.update(k_scale=d["k_scale"], v_scale=d["v_scale"])
+            B, C, H, hd = d["q"].shape
+            KV, NB = d["pool_k"].shape[2], d["block_table"].shape[1]
+            out = torch.empty_like(d["q"])
+            p = runtime.ptr
+            ptrs = [p(x) for x in args[:5]] + [p(kw.get("k_scale")),
+                                               p(kw.get("v_scale"))]
+            ptrs += [p(x) for x in args[5:]] + [p(out)]
+            q_name = "bf16" if dtype == torch.bfloat16 else "f32"
+            fn = getattr(lib, f"chunked_prefill_{q_name}{suffix}")
+            stream = runtime.stream_ptr(dev)
+
+            def parent_call(fn=fn, ptrs=ptrs, out=out, dims=(
+                    B, C, H, KV, hd, BT, NB, W)):
+                st = fn(*ptrs, *dims, 1, 1.0 / math.sqrt(dims[4]),
+                        pfa.BLOCK_M, pfa.THREADS, stream)
+                if st:
+                    raise RuntimeError(f"parent chunk kernel: cudaError {st}")
+                return out
+
+            change = (lambda args=args, kw=kw:
+                      pfa.chunked_prefill_attention(*args, **kw))
+            want = pfa.plain(*args, **kw).float()
+            got_p, got_c = parent_call().float(), change().float()
+            torch.cuda.synchronize()
+            times = [time_ms(torch, f) for f in (parent_call, change, change,
+                                                 parent_call)]
+            row = dict(kernel=key, q=str(dtype)[6:],
+                       parent_ms=[times[0], times[3]], ms=[times[1], times[2]],
+                       parent_max_abs_err=(got_p - want).abs().max().item(),
+                       max_abs_err=(got_c - want).abs().max().item(),
+                       parent_row_ulps=max_row_ulps(torch, got_p, want),
+                       row_ulps=max_row_ulps(torch, got_c, want))
+            if dtype == torch.bfloat16:
+                lib_d = (dequantized(torch, d, dtype) if "k_scale" in d
+                         else d)
+                byts, flops = chunk_work(d, W, BT, 2)
+                row.update(limit=CHUNK_FULL_ATOL[key],
+                           sdpa_ms=time_ms(torch, sdpa_chunk(torch, lib_d, W)),
+                           **bound(byts, flops, "bfloat16"))
+            rows.append(row)
+    log(json.dumps({"chunked_prefill_ab": rows, "card": nvidia_smi_line()}))
+
+
+def phase_kernels(torch, ab_parent=None):
     from repro_torch.kernels import farview_summarize as fvs
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import prefill_attention as pfa
@@ -830,6 +996,7 @@ def phase_kernels(torch):
     }
     check_mma_smem(pfa)
     dense_head_sizes(torch, pfa, dev)
+    chunk_sweep(torch, pfa, dev)
     res = {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, far_shp in far_shapes.items():
@@ -858,6 +1025,7 @@ def phase_kernels(torch):
             log(f"chunked_prefill {name} {dtype}: max_abs_err {err:.3e}; "
                 f"skip on == off, run == run, bitwise")
             if name == "full" and dtype == torch.bfloat16:
+                check_chunk_tight(err, "chunked_prefill")
                 res["chunked_prefill"] = (d, W, err, shp["BT"])
         for name, shp in dense_shapes.items():
             d, err = check_dense(torch, pfa, dev, dtype, shp, seed=5)
@@ -884,6 +1052,7 @@ def phase_kernels(torch):
                 log(f"chunked_prefill {kvd} {name} {dtype}: max_abs_err "
                     f"{err:.3e}; skip on == off, run == run, bitwise")
                 if name == "full" and dtype == torch.bfloat16:
+                    check_chunk_tight(err, f"chunked_prefill_{kvd}")
                     res[f"chunked_prefill_{kvd}"] = (d, W, err,
                                                      chk_shapes[name]["BT"])
 
@@ -976,6 +1145,8 @@ def phase_kernels(torch):
             library_ms=time_ms(torch, sdpa_dense(torch, d, **kw)),
             **bound(byts, flops, "bfloat16"))
     encoder_lengths(torch, pfa, dev)
+    if ab_parent is not None:
+        chunk_ab(torch, pfa, res, ab_parent, chk_shapes["full"])
     for k, r in rows.items():
         lib = ("library (SDPA on the dequantized window, dequantize "
                "excluded)" if k.endswith(KV_DTYPES) else "library")
@@ -1317,11 +1488,15 @@ def phase_serve_quant(torch, n_layers, kv_dtype, merge_peak=None,
 
 
 def agreeing_blocks(engs):
-    """Physical blocks holding the written tokens of every active request
-    whose tokens so far are the same in both runs (the same block ids in
-    both: the control plane depends on lengths only). A block's codes and
-    scales depend only on its own tokens, whose layer-0 K/V both paths
-    compute with the same torch ops."""
+    """(physical block, rows written) of the blocks holding the written
+    tokens of every active request whose tokens so far are the same in
+    both runs (the same block ids in both: the control plane depends on
+    lengths only). The written rows' codes and the block's scales depend
+    only on its own tokens, whose layer-0 K/V both paths compute with the
+    same torch ops. The rows past them are zero in value, but a recycled
+    block's fp8 zeros keep the sign of its previous owner's codes (the
+    fresh block is requantized by 0), and that owner's tokens may differ
+    between the runs."""
     k, p = engs["kernel"], engs["plain"]
     out = []
     for slot in k.sched.active_slots():
@@ -1330,10 +1505,12 @@ def agreeing_blocks(engs):
                 or list(rk.generated) != list(rp.generated):
             continue
         sid = int(k._slot_sid[slot])
-        n = -(-int(k._slot_len[slot]) // k.bt)
+        length = int(k._slot_len[slot])
+        n = -(-length // k.bt)
         blocks = k.pager.sessions[sid].blocks[:n]
         assert blocks == p.pager.sessions[int(p._slot_sid[slot])].blocks[:n]
-        out += blocks
+        out += [(blk, min(k.bt, length - j * k.bt))
+                for j, blk in enumerate(blocks)]
     return out
 
 
@@ -1349,13 +1526,21 @@ def layer0_bits(torch, pools, blocks):
     return out
 
 
+def code_values(torch, bits):
+    """Codes from :func:`layer0_bits` as f32 values (+0 == -0)."""
+    if bits.dtype == torch.uint8:
+        return bits.view(torch.float8_e4m3fn).float()
+    return bits.float()
+
+
 def phase_parity_quant(torch, kv_dtype, n_layers=2, device="cuda",
                        full_width=True):
     """The serve trace with a narrow KV dtype at full width and
     ``n_layers``: the kernel path and the plain path stepped in lockstep.
-    After each step, the layer-0 codes and scales of every block written
-    by a request whose tokens agree in both runs must be bitwise equal
-    (:func:`agreeing_blocks`); logits within LOGIT_TOL on identical inputs,
+    After each step, for every block written by a request whose tokens
+    agree in both runs (:func:`agreeing_blocks`), the layer-0 codes of the
+    rows it wrote and the block's scales must be bitwise equal, and the
+    rest of its codes equal in value; logits within LOGIT_TOL on identical inputs,
     streams part only below TIE_MARGIN; steps, frames and pager stats
     equal a CPU run of the reduced config."""
     from repro_torch.configs import get_config, get_reduced
@@ -1385,6 +1570,7 @@ def phase_parity_quant(torch, kv_dtype, n_layers=2, device="cuda",
     runtime.reset_launches()
     k_launch = {k: 0 for k in runtime.LAUNCHES}
     blocks_compared = 0
+    tail_sign_only = 0    # code tensors apart only in unwritten zeros' signs
     busy = lambda e: bool(e.sched.waiting or e.sched.active_slots())
     while busy(engs["kernel"]) or busy(engs["plain"]):
         for impl, eng in engs.items():
@@ -1400,9 +1586,20 @@ def phase_parity_quant(torch, kv_dtype, n_layers=2, device="cuda",
         ops.set_default_impl("kernel")
         blocks = agreeing_blocks(engs)
         if blocks:
-            for a, b in zip(layer0_bits(torch, engs["kernel"].pools, blocks),
-                            layer0_bits(torch, engs["plain"].pools, blocks)):
-                assert torch.equal(a, b), (
+            ids = [blk for blk, _ in blocks]
+            written = (torch.arange(s["block_tokens"], device=device)[None]
+                       < torch.tensor([r for _, r in blocks],
+                                      device=device)[:, None])
+            for a, b in zip(layer0_bits(torch, engs["kernel"].pools, ids),
+                            layer0_bits(torch, engs["plain"].pools, ids)):
+                if a.dim() == 2:                              # scales
+                    same = torch.equal(a, b)
+                else:  # codes: written rows bitwise, the rest in value
+                    same = (torch.equal(a[written], b[written])
+                            and torch.equal(code_values(torch, a),
+                                            code_values(torch, b)))
+                    tail_sign_only += int(same and not torch.equal(a, b))
+                assert same, (
                     f"layer 0 codes or scales differ after step "
                     f"{engs['kernel'].steps_run} ({kv_dtype})")
             blocks_compared += len(blocks)
@@ -1455,6 +1652,7 @@ def phase_parity_quant(torch, kv_dtype, n_layers=2, device="cuda",
                max_parting_margin=max(margins, default=None),
                logits_compared=n_cmp, logits_max_abs_diff=logit_diff,
                layer0_blocks_bitwise=blocks_compared,
+               layer0_tail_zero_sign_diffs=tail_sign_only,
                pager_stats_equal_cpu=True)
     log("parity_quant:", json.dumps(out))
     del k_eng, p_eng, engs, params
@@ -1927,6 +2125,10 @@ def main(argv=None):
                          "traces")
     ap.add_argument("--profile-out", default=None,
                     help="file for the profile phase's kernel table")
+    ap.add_argument("--ab-parent", default=None,
+                    help="an unpacked checkout (the parent commit): the "
+                         "kernels phase then times its chunked_prefill.cu "
+                         "against this one's, parent, change, change, parent")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1952,7 +2154,8 @@ def main(argv=None):
                 if "registers" in line or "spill" in line.lower():
                     log(f"  {name}: {line.strip()}")
 
-    rows = phase_kernels(torch) if "kernels" in phases else {}
+    rows = (phase_kernels(torch, args.ab_parent) if "kernels" in phases
+            else {})
     # kernel JSON row -> launches on the path that drives it, each path
     # with the counters zeroed just before it and read just after
     launches = {}

@@ -10,7 +10,13 @@ Pallas kernels:
   step, and idle slots (``n_valid == 0``) write zeros and read nothing.
   With the quantized tier the pools hold fp8_e4m3 or int8 codes, scaled
   per (physical block, kv head) by ``k_scale``/``v_scale`` as they load
-  (the ``quant=True`` branch).
+  (the ``quant=True`` branch). With bf16 q the kernel runs on the tensor
+  cores (``mma.sync`` tiles fed by a ``cp.async`` ring gathered row by row
+  through the block table, any BT; narrow codes widened to bf16 in shared
+  memory, the scales applied in f32) for hd a multiple of 16 up to 256
+  and 16-byte aligned operands; it rounds p to bf16 before P·V, as the
+  plain version rounds p to the pool's dtype. With f32 q it runs on CUDA
+  cores.
 * ``_prefill_kernel`` — dense full-sequence GQA flash attention with
   optional causal and window masks (``csrc/prefill_flash.cu``): the
   encoder's attention. Its plain version is what the reference's
@@ -59,6 +65,8 @@ def _lib():
                 fn.restype = I
         lib.chunked_prefill_smem_bytes.argtypes = [I, I, I]
         lib.chunked_prefill_smem_bytes.restype = ctypes.c_size_t
+        lib.chunked_prefill_mma_smem_bytes.argtypes = [I, I]
+        lib.chunked_prefill_mma_smem_bytes.restype = ctypes.c_size_t
         _argtypes_set = True
     return lib
 
@@ -102,6 +110,15 @@ def _check(q, pool_k, pool_v, cur_k, cur_v, block_table, window_base,
     if hd > 256 or BT > 256:
         raise ValueError(f"kernel takes hd <= 256 and BT <= 256 "
                          f"(got hd={hd}, BT={BT})")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel: 16-wide k-steps, 16-byte cp.async rows
+        if hd % 16:
+            raise ValueError(f"bf16 kernel takes hd a multiple of 16 up to "
+                             f"256 (got {hd})")
+        for name, x in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
+                        ("cur_k", cur_k), ("cur_v", cur_v)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def chunked_prefill_attention(q, pool_k, pool_v, cur_k, cur_v, block_table,
@@ -125,7 +142,10 @@ def chunked_prefill_attention(q, pool_k, pool_v, cur_k, cur_v, block_table,
     P, BT, KV, _ = pool_k.shape
     NB = block_table.shape[1]
     lib = _lib()
-    smem = lib.chunked_prefill_smem_bytes(BLOCK_M, hd, BT)
+    quant = pool_k.dtype in QUANT_DTYPES
+    smem = (lib.chunked_prefill_mma_smem_bytes(hd, int(quant))
+            if q.dtype == torch.bfloat16
+            else lib.chunked_prefill_smem_bytes(BLOCK_M, hd, BT))
     if smem > MAX_SMEM:
         raise ValueError(f"shape needs {smem} B of shared memory "
                          f"(> {MAX_SMEM}): hd={hd} BT={BT}")
@@ -139,7 +159,7 @@ def chunked_prefill_attention(q, pool_k, pool_v, cur_k, cur_v, block_table,
                 runtime.stream_ptr(q.device))
     runtime.check_status(NAME, status)
     runtime.count_launch(NAME)
-    if pool_k.dtype in QUANT_DTYPES:
+    if quant:
         runtime.count_launch(QUANT)
     return out
 
