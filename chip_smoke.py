@@ -17,7 +17,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              (atol 1e-4); the decode kernel also with the far view (its
              far_util within 1e-4), the summarize kernel within one bf16
              ulp / 1e-5 in f32; skip-extent on and off bitwise equal, a far
-             view with every entry masked bitwise equal to none, far_util
+             view with every entry masked bitwise equal to none (bf16:
+             to an empty far view, CAP 0, and within the tolerance of the
+             split-KV kernel that runs without one), far_util
              equal from run to run; CUDA-event times of the kernel, the
              plain version and one PyTorch library call (a yardstick the
              port never calls: ``scaled_dot_product_attention`` on the
@@ -185,6 +187,21 @@ KV_DTYPES = ("fp8_e4m3", "int8")
 CHUNK_FULL_ATOL = {"chunked_prefill": 1.5625e-2,
                    "chunked_prefill_fp8_e4m3": 1.5625e-2,
                    "chunked_prefill_int8": 1.5625e-2}
+# the engine's bf16 decode (the split-KV kernel and its combine) at the main
+# path's shapes, beside TOL: max abs err against the plain version no larger
+# than the CUDA-core kernel it replaced measured there (the parent's
+# `--phases build,kernels` on an H100 80GB HBM3: one bf16 ulp at |x| in
+# [0.5, 1), [0.125, 0.25) and [1, 2))
+DECODE_FULL_ATOL = {"paged_decode": 3.90625e-3,
+                    "paged_decode_fp8_e4m3": 9.765625e-4,
+                    "paged_decode_int8": 3.90625e-3,
+                    "paged_decode_encdec": 7.8125e-3}
+# the dense prefill kernel's bf16 path (tensor cores), beside TOL: its own
+# measured max abs err at the encoder's shape, at qwen width (gqa) and over
+# the head sizes it takes (S 77, n_rep 2), on an H100 80GB HBM3
+PREFILL_FULL_ATOL = {"prefill_flash": 3.90625e-3,
+                     "prefill_flash_gqa": 1.5625e-2,
+                     "prefill_flash_hd": 7.8125e-3}
 # decode_skew: bench_decode_skew.py's kernel geometry at qwen2.5-32b decode
 # width (NB = W / BT + 1 window blocks, P = B NB + 1 pool blocks); the q
 # dtypes, and the narrow pools (under bf16 q)
@@ -414,7 +431,18 @@ def check_decode_far(torch, pa, dev, dtype, shape, far_shape, seed):
     masked = dict(f, far_valid=torch.zeros_like(f["far_valid"]))
     none, u_none = pa.paged_decode_attention(*args, skip_extent=True, **kw,
                                              **masked)
-    base = pa.paged_decode_attention(*args, skip_extent=True, **kw)
+    split = None
+    if dtype == torch.float32:
+        base = pa.paged_decode_attention(*args, skip_extent=True, **kw)
+    else:
+        # bf16 without the far view runs the split-KV kernel: the far
+        # kernel's no-op is held against its own run on an empty far view
+        # (CAP 0), and the split kernel's output within TOL
+        empty = dict(f, far_table=f["far_table"][:, :0].contiguous(),
+                     far_valid=f["far_valid"][:, :0].contiguous())
+        base, _ = pa.paged_decode_attention(*args, skip_extent=True, **kw,
+                                            **empty)
+        split = pa.paged_decode_attention(*args, skip_extent=True, **kw)
     want, u_want = pa.plain(*args, skip_extent=True, **kw, **f)
     torch.cuda.synchronize()
     tag = f"({dtype}, {shape}, {far_shape})"
@@ -425,6 +453,10 @@ def check_decode_far(torch, pa, dev, dtype, shape, far_shape, seed):
     if not torch.equal(none, base) or u_none.any():
         raise AssertionError(f"paged_decode: an all-masked far view is not "
                              f"a bitwise no-op {tag}")
+    if split is not None and not torch.allclose(none.float(), split.float(),
+                                                **TOL["bfloat16"]):
+        raise AssertionError(f"paged_decode: an all-masked far view differs "
+                             f"from the split-KV kernel's output {tag}")
     err = (on.float() - want.float()).abs().max().item()
     uerr = (u_on - u_want).abs().max().item()
     if not torch.allclose(on.float(), want.float(), **TOL[str(dtype)[6:]]):
@@ -749,6 +781,7 @@ def dense_head_sizes(torch, pfa, dev):
         shp = dict(B=1, S=77, H=4, KV=2, hd=hd, causal=False, window=None)
         _, errs[hd] = check_dense(torch, pfa, dev, torch.bfloat16, shp,
                                   seed=9)
+        check_tight(errs[hd], PREFILL_FULL_ATOL, "prefill_flash_hd")
     log("prefill_flash bf16 at hd 16-256 (S 77, n_rep 2): max_abs_err "
         + ", ".join(f"{hd} {e:.3e}" for hd, e in errs.items())
         + "; run == run bitwise")
@@ -831,13 +864,94 @@ def chunk_sweep(torch, pfa, dev):
             + "; skip on == off, run == run, bitwise")
 
 
-def check_chunk_tight(err, key):
-    """The bf16 chunk kernel at the main path's shape within
-    ``CHUNK_FULL_ATOL`` (beside ``TOL``)."""
-    limit = CHUNK_FULL_ATOL[key]
+def check_tight(err, limits, key):
+    """A bf16 kernel's max abs err within ``limits[key]`` (beside ``TOL``)."""
+    limit = limits[key]
     if not err <= limit:
         raise AssertionError(f"{key} at the main path's shape: max abs err "
                              f"{err} > {limit}")
+
+
+def decode_split_shapes(pa):
+    """Shapes of the bf16 decode kernel's split-boundary sweep: every head
+    size it takes (16-256) with BT 8, 16 and 32 and n_rep 1 and 5, a
+    128-token window (NB = 128 / BT + 1), B 6, KV 2. Lengths: seq_lens 0; a
+    window ending exactly on the first split edge (t = nbs BT: its last key
+    is that split's last row, the current token's slot the next split's
+    first); one ending a row short of the second edge; a slid window (window
+    base > 0); t 5 (every later split left empty by the extent); a retired
+    slot."""
+    import torch
+    n_sm = pa.sm_count(torch.device("cuda"))
+    shapes = {}
+    for hd in range(16, 257, 16):
+        for bt in (8, 16, 32):
+            for n_rep in (1, 5):
+                nb = 128 // bt + 1
+                _, nbs = pa.split_count(6, 2, n_rep, nb, bt, hd, n_sm)
+                shapes[f"hd{hd}_bt{bt}_nrep{n_rep}"] = dict(
+                    B=6, H=2 * n_rep, KV=2, hd=hd, BT=bt, NB=nb,
+                    P=6 * nb + 1,
+                    seq_lens=[0, nbs * bt, 2 * nbs * bt - 1, 400, 5, 300],
+                    active=[1, 1, 1, 1, 1, 0])
+    return shapes
+
+
+def decode_split_sweep(torch, pa, dev):
+    """The bf16 engine-form decode (split-KV kernel and combine) over
+    :func:`decode_split_shapes` with bf16, fp8_e4m3 and int8 pools, each
+    case checked as in the kernels phase: within ``TOL`` of the plain
+    version, skip on == off and run == run bitwise, the retired slot
+    zero."""
+    for kvd in (None,) + KV_DTYPES:
+        worst = (0.0, "")
+        for name, shp in decode_split_shapes(pa).items():
+            d, _, err = check_decode(torch, pa, dev, torch.bfloat16, shp,
+                                     seed=11, kv_dtype=kvd)
+            worst = max(worst, (err, name))
+        log(f"paged_decode bf16 split sweep ({kvd or 'bf16 pool'}): "
+            f"{len(decode_split_shapes(pa))} shapes (hd 16-256, BT 8/16/32, "
+            f"n_rep 1/5), max_abs_err {worst[0]:.3e} ({worst[1]}); skip on "
+            f"== off, run == run, bitwise")
+
+
+def combine_row(torch, pa, d, W):
+    """The split-KV combine alone at the main path's shape, on the
+    workspace of the split kernel's plain model (the same partials for the
+    kernel and its plain version): max abs err, times, bound (the active
+    slots' partials read once, q, cur_k, cur_v read and the output written
+    once; a dot, the fold and the normalisation per output)."""
+    B, H, hd = d["q"].shape
+    P, BT, KV, _ = d["pool_k"].shape
+    NB = d["block_table"].shape[1]
+    S, _ = pa.split_count(B, KV, H // KV, NB, BT, hd,
+                          pa.sm_count(d["q"].device))
+    args = [d[k] for k in ("q", "pool_k", "pool_v", "block_table",
+                           "window_base", "seq_lens", "slot_active")]
+    scales = {k: d[k] for k in ("k_scale", "v_scale") if k in d}
+    work = pa.split_partials(*args, near_window=W, splits=S, **scales)
+    cw = (work, d["q"], d["cur_k"], d["cur_v"], d["slot_active"])
+    got = pa.paged_decode_combine(*cw, splits=S)
+    again = pa.paged_decode_combine(*cw, splits=S)
+    want = pa.combine_plain(*cw, splits=S)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("paged_decode_combine: two runs differ")
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), **TOL["bfloat16"]):
+        raise AssertionError(f"paged_decode_combine vs plain: {err}")
+    n_act = int((d["slot_active"] > 0).sum())
+    byts = (n_act * H * S * (hd + 2) * 4 + 2 * B * H * hd * 2
+            + 2 * B * KV * hd * 2 + B * 4)
+    flops = n_act * H * (2 * hd + S * (2 * hd + 4) + 3 * hd)
+    log(f"paged_decode_combine (S {S}): max_abs_err {err:.3e}; run == run "
+        f"bitwise")
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
+        replaces="src/repro/kernels/paged_attention.py:80", max_abs_err=err,
+        ms=time_ms(torch, lambda: pa.paged_decode_combine(*cw, splits=S)),
+        plain_ms=time_ms(torch, lambda: pa.combine_plain(*cw, splits=S)),
+        library_ms=None, **bound(byts, flops, "float32"))
 
 
 def parent_chunk_lib(parent):
@@ -934,6 +1048,121 @@ def chunk_ab(torch, pfa, res, parent, shape):
     log(json.dumps({"chunked_prefill_ab": rows, "card": nvidia_smi_line()}))
 
 
+_PARENT_DECODE_LIBS = {}
+
+
+def parent_decode_lib(parent):
+    """The decode kernels' library built from another checkout's
+    ``paged_decode.cu`` (``parent``: an unpacked tree of the commit before
+    the split-KV kernel), with the port's nvcc flags, once a process; its
+    engine entries bound with that commit's arguments (no workspace, no
+    split count)."""
+    import ctypes
+    from repro_torch.kernels import runtime
+    if parent in _PARENT_DECODE_LIBS:
+        return _PARENT_DECODE_LIBS[parent]
+    csrc = Path(parent).resolve() / "src" / "repro_torch" / "kernels" / "csrc"
+    runtime.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = runtime.BUILD_DIR / "libpaged_decode-parent.so"
+    subprocess.run([runtime.nvcc_path(), *runtime.NVCC_FLAGS, "-I", str(csrc),
+                    "-o", str(out), str(csrc / "paged_decode.cu")],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for q in ("bf16", "f32"):
+        for suffix in ("", "_fp8", "_int8"):
+            fn = getattr(lib, f"paged_decode_{q}{suffix}")
+            fn.argtypes = [P] * 17 + [I] * 10 + [ctypes.c_float, I, P]
+            fn.restype = I
+    _PARENT_DECODE_LIBS[parent] = lib
+    return lib
+
+
+def decode_ab(torch, pa, res, parent, shape):
+    """Parent, change, change, parent for the engine-form decode in one
+    call: bf16 q at the main path's shape with each pool type and at the
+    seamless shape (the split-KV kernel against the CUDA-core kernel it
+    replaced), then paths whose kernel did not change: f32 q at the main
+    path's shape and bf16 with the far view. The other checkout's kernel is
+    called through its own C entry with the wrapper's arguments; both held
+    against the plain version (max abs err, row-scale bf16 ulps); SDPA and
+    the bound beside the bf16 rows; one JSON line with the card."""
+    import math
+    from repro_torch.kernels import runtime
+    lib = parent_decode_lib(parent)
+    dev = torch.device("cuda")
+    d32, W32 = decode_inputs(torch, dev, torch.float32, seed=1, **shape)
+    cases = [(k, *res[k]) for k in ("paged_decode", "paged_decode_fp8_e4m3",
+                                    "paged_decode_int8",
+                                    "paged_decode_encdec")]
+    cases.append(("paged_decode_f32", d32, W32, None, shape["BT"]))
+    d, f, W, _, BT = res["paged_decode_far"]
+    cases.append(("paged_decode_far", dict(d, **f), W, None, BT))
+    rows = []
+    for key, d, W, _, BT in cases:
+        args = [d[k] for k in ("q", "pool_k", "pool_v", "block_table",
+                               "window_base", "seq_lens", "slot_active")]
+        kw = dict(near_window=W, cur_k=d["cur_k"], cur_v=d["cur_v"],
+                  skip_extent=True)
+        far = {k: d[k] for k in ("far_k", "far_v", "far_table", "far_valid")
+               if k in d}
+        scales = {k: d[k] for k in ("k_scale", "v_scale") if k in d}
+        kw.update(far, **scales)
+        B, H, hd = d["q"].shape
+        KV, NB = d["pool_k"].shape[2], d["block_table"].shape[1]
+        MAXC, CAP = ((far["far_k"].shape[1], far["far_table"].shape[1])
+                     if far else (0, 0))
+        out = torch.empty_like(d["q"])
+        util = (torch.empty(B, KV, CAP, dtype=torch.float32, device=dev)
+                if far else None)
+        p = runtime.ptr
+        ptrs = [p(x) for x in args] + [p(d["cur_k"]), p(d["cur_v"]),
+                                       p(scales.get("k_scale")),
+                                       p(scales.get("v_scale"))]
+        ptrs += [p(far.get(k)) for k in ("far_k", "far_v", "far_table",
+                                         "far_valid")] + [p(out), p(util)]
+        q_name = "bf16" if d["q"].dtype == torch.bfloat16 else "f32"
+        suffix = {torch.float8_e4m3fn: "_fp8", torch.int8: "_int8"}.get(
+            d["pool_k"].dtype, "")
+        fn = getattr(lib, f"paged_decode_{q_name}{suffix}")
+        stream = runtime.stream_ptr(dev)
+
+        def parent_call(fn=fn, ptrs=ptrs, out=out, util=util, dims=(
+                B, H, KV, hd, BT, NB, MAXC, CAP, W)):
+            st = fn(*ptrs, *dims, 1, 1.0 / math.sqrt(dims[3]), pa.THREADS,
+                    stream)
+            if st:
+                raise RuntimeError(f"parent decode kernel: cudaError {st}")
+            if util is not None:   # the wrapper's fixed-order sum, as change
+                util.sum(dim=1)
+            return out
+
+        def change(args=args, kw=kw, far=bool(far)):
+            got = pa.paged_decode_attention(*args, **kw)
+            return got[0] if far else got
+
+        want = pa.plain(*args, **kw)
+        want = (want[0] if far else want).float()
+        got_p, got_c = parent_call().float(), change().float()
+        torch.cuda.synchronize()
+        times = [time_ms(torch, fn_) for fn_ in (parent_call, change, change,
+                                                  parent_call)]
+        row = dict(kernel=key, q=str(d["q"].dtype)[6:],
+                   parent_ms=[times[0], times[3]], ms=[times[1], times[2]],
+                   parent_max_abs_err=(got_p - want).abs().max().item(),
+                   max_abs_err=(got_c - want).abs().max().item(),
+                   parent_row_ulps=max_row_ulps(torch, got_p, want),
+                   row_ulps=max_row_ulps(torch, got_c, want))
+        if key in DECODE_FULL_ATOL:
+            lib_d = dequantized(torch, d, d["q"].dtype) if scales else d
+            byts, flops = decode_work(d, W, BT, 2)
+            row.update(limit=DECODE_FULL_ATOL[key],
+                       sdpa_ms=time_ms(torch, sdpa_decode(torch, lib_d, W)),
+                       **bound(byts, flops, "bfloat16"))
+        rows.append(row)
+    log(json.dumps({"paged_decode_ab": rows, "card": nvidia_smi_line()}))
+
+
 def phase_kernels(torch, ab_parent=None):
     from repro_torch.kernels import farview_summarize as fvs
     from repro_torch.kernels import paged_attention as pa
@@ -997,6 +1226,7 @@ def phase_kernels(torch, ab_parent=None):
     check_mma_smem(pfa)
     dense_head_sizes(torch, pfa, dev)
     chunk_sweep(torch, pfa, dev)
+    decode_split_sweep(torch, pa, dev)
     res = {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, far_shp in far_shapes.items():
@@ -1019,13 +1249,14 @@ def phase_kernels(torch, ab_parent=None):
                 f"skip on == off, run == run, bitwise")
             if name in ("full", "encdec") and dtype == torch.bfloat16:
                 key = "paged_decode" + ("_encdec" if name == "encdec" else "")
+                check_tight(err, DECODE_FULL_ATOL, key)
                 res[key] = (d, W, err, shp["BT"])
         for name, shp in chk_shapes.items():
             d, W, err = check_chunk(torch, pfa, dev, dtype, shp, seed=2)
             log(f"chunked_prefill {name} {dtype}: max_abs_err {err:.3e}; "
                 f"skip on == off, run == run, bitwise")
             if name == "full" and dtype == torch.bfloat16:
-                check_chunk_tight(err, "chunked_prefill")
+                check_tight(err, CHUNK_FULL_ATOL, "chunked_prefill")
                 res["chunked_prefill"] = (d, W, err, shp["BT"])
         for name, shp in dense_shapes.items():
             d, err = check_dense(torch, pfa, dev, dtype, shp, seed=5)
@@ -1033,6 +1264,7 @@ def phase_kernels(torch, ab_parent=None):
                 f"== run bitwise")
             if name in ("encoder", "gqa") and dtype == torch.bfloat16:
                 key = "prefill_flash" + ("_gqa" if name == "gqa" else "")
+                check_tight(err, PREFILL_FULL_ATOL, key)
                 res[key] = (d, shp, err)
         # the quantized branches: qwen's decode and chunk shapes with
         # narrow pools (the encdec family has no quantized tier)
@@ -1044,6 +1276,7 @@ def phase_kernels(torch, ab_parent=None):
                 log(f"paged_decode {kvd} {name} {dtype}: max_abs_err "
                     f"{err:.3e}; skip on == off, run == run, bitwise")
                 if name == "full" and dtype == torch.bfloat16:
+                    check_tight(err, DECODE_FULL_ATOL, f"paged_decode_{kvd}")
                     res[f"paged_decode_{kvd}"] = (d, W, err,
                                                   dec_shapes[name]["BT"])
                 d, W, err = check_chunk(torch, pfa, dev, dtype,
@@ -1052,7 +1285,7 @@ def phase_kernels(torch, ab_parent=None):
                 log(f"chunked_prefill {kvd} {name} {dtype}: max_abs_err "
                     f"{err:.3e}; skip on == off, run == run, bitwise")
                 if name == "full" and dtype == torch.bfloat16:
-                    check_chunk_tight(err, f"chunked_prefill_{kvd}")
+                    check_tight(err, CHUNK_FULL_ATOL, f"chunked_prefill_{kvd}")
                     res[f"chunked_prefill_{kvd}"] = (d, W, err,
                                                      chk_shapes[name]["BT"])
 
@@ -1144,15 +1377,19 @@ def phase_kernels(torch, ab_parent=None):
                 d["q"], d["k"], d["v"], **kw)),
             library_ms=time_ms(torch, sdpa_dense(torch, d, **kw)),
             **bound(byts, flops, "bfloat16"))
+    d, W, _, _ = res["paged_decode"]
+    rows["paged_decode_combine"] = combine_row(torch, pa, d, W)
     encoder_lengths(torch, pfa, dev)
     if ab_parent is not None:
+        decode_ab(torch, pa, res, ab_parent, dec_shapes["full"])
         chunk_ab(torch, pfa, res, ab_parent, chk_shapes["full"])
     for k, r in rows.items():
         lib = ("library (SDPA on the dequantized window, dequantize "
                "excluded)" if k.endswith(KV_DTYPES) else "library")
+        lib_ms = ("none" if r["library_ms"] is None
+                  else f"{r['library_ms']:.4f}")
         log(f"{k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, {lib} "
-            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by "
-            f"{r['bound_by']})")
+            f"{lib_ms}, bound {r['bound_ms']:.5f} by {r['bound_by']})")
     return rows
 
 
@@ -1661,6 +1898,101 @@ def phase_parity_quant(torch, kv_dtype, n_layers=2, device="cuda",
     return out
 
 
+def phase_decode_agreement(torch, parent=None, n_layers=2):
+    """The engine-form bf16 decode on the inputs the engine gives it:
+    parity_quant's engine (the serve trace, full width, ``n_layers``
+    layers, kernels on) with a bf16, an fp8_e4m3 and an int8 pool. Each
+    decode call's output is held against the plain version on the same
+    inputs: elements apart, the share of those the kernel rounds to the
+    smaller magnitude (a bias toward zero shows above one half), max abs
+    diff. With ``parent`` (an unpacked checkout) the parent's kernel runs
+    on the same inputs too. One JSON line with the card."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as pa, runtime
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+    from repro_torch.serving.factory import build
+    lib = parent_decode_lib(parent) if parent is not None else None
+    s = SERVE
+    cfg = get_config(ARCH).replace(n_layers=n_layers)
+    params = registry.init_params(cfg, seed=s["seed"], device="cuda")
+    rows = []
+    wrapper = pa.paged_decode_attention
+    for kvd in (None,) + KV_DTYPES:
+        tally = {k: dict(apart=0, smaller=0, max_abs=0.0)
+                 for k in ("change", "parent")}
+        seen = dict(calls=0, elements=0)
+
+        def count(key, got, want):
+            t = tally[key]
+            ne = got != want
+            t["apart"] += int(ne.sum())
+            t["smaller"] += int((got.float().abs()
+                                 < want.float().abs())[ne].sum())
+            t["max_abs"] = max(t["max_abs"], float(
+                (got.float() - want.float()).abs().max()))
+
+        def parent_out(args, kw):
+            q, pk = args[0], args[1]
+            B, H, hd = q.shape
+            P, BT, KV, _ = pk.shape
+            out = torch.empty_like(q)
+            suffix = {torch.float8_e4m3fn: "_fp8", torch.int8: "_int8"}.get(
+                pk.dtype, "")
+            p = runtime.ptr
+            ptrs = [p(x) for x in args] + [
+                p(kw["cur_k"]), p(kw["cur_v"]), p(kw.get("k_scale")),
+                p(kw.get("v_scale"))] + [p(None)] * 4 + [p(out), p(None)]
+            st = getattr(lib, f"paged_decode_bf16{suffix}")(
+                *ptrs, B, H, KV, hd, BT, args[3].shape[1], 0, 0,
+                int(kw["near_window"]), int(bool(kw["skip_extent"])),
+                1.0 / math.sqrt(hd), pa.THREADS,
+                runtime.stream_ptr(q.device))
+            if st:
+                raise RuntimeError(f"parent decode kernel: cudaError {st}")
+            return out
+
+        def wrapped(*args, **kw):
+            got = wrapper(*args, **kw)
+            want = pa.plain(*args, **kw)
+            seen["calls"] += 1
+            seen["elements"] += got.numel()
+            count("change", got, want)
+            if lib is not None:
+                count("parent", parent_out(args, kw), want)
+            return got
+
+        pa.paged_decode_attention = wrapped
+        try:
+            eng = build(ARCH, cfg=cfg, params=params, device="cuda",
+                        mode="paged_merge", batch=s["batch"],
+                        max_seq=s["max_seq"], near_window=s["near_window"],
+                        block_tokens=s["block_tokens"],
+                        prefill_chunk=s["prefill_chunk"],
+                        kv_dtype=kvd or "bf16")[0]
+            reqs = serve.make_workload(s["requests"], cfg.vocab_size,
+                                       seed=s["seed"],
+                                       prompt_len=s["prompt_len"],
+                                       gen_len=s["gen_len"])
+            for r in reqs:
+                eng.submit(r)
+            while eng.sched.waiting or eng.sched.active_slots():
+                eng.step()
+            torch.cuda.synchronize()
+        finally:
+            pa.paged_decode_attention = wrapper
+        row = dict(pool=kvd or "bf16", **seen, change=tally["change"])
+        if lib is not None:
+            row["parent"] = tally["parent"]
+        rows.append(row)
+        del eng
+    log(json.dumps({"decode_agreement": rows, "card": nvidia_smi_line()}))
+    del params
+    torch.cuda.empty_cache()
+    return rows
+
+
 def record_far(eng):
     """Log the far policy of ``eng``: each selection (step, slot, rid,
     tokens generated so far, summaries, table, validity) and each step's
@@ -2122,13 +2454,16 @@ def main(argv=None):
                     help="comma-separated subset (the device phase always "
                          "runs); 'profile' and 'profile_encdec' add a "
                          "torch.profiler pass over serve's and serve_encdec's "
-                         "traces")
+                         "traces; 'decode_agreement' holds the engine's bf16 "
+                         "decode against its plain version on the engine's "
+                         "own inputs (and the --ab-parent kernel)")
     ap.add_argument("--profile-out", default=None,
                     help="file for the profile phase's kernel table")
     ap.add_argument("--ab-parent", default=None,
                     help="an unpacked checkout (the parent commit): the "
-                         "kernels phase then times its chunked_prefill.cu "
-                         "against this one's, parent, change, change, parent")
+                         "kernels phase then times its paged_decode.cu and "
+                         "chunked_prefill.cu against this one's, parent, "
+                         "change, change, parent")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2167,7 +2502,10 @@ def main(argv=None):
     if "serve" in phases:
         lm, summary = phase_serve(torch, args.n_layers)
         launches["paged_decode"] = lm["paged_decode"]
+        launches["paged_decode_combine"] = lm["paged_decode_combine"]
         launches["chunked_prefill"] = lm["chunked_prefill"]
+        # every bf16 decode of the main path ran the split-KV kernel
+        assert lm["paged_decode_combine"] == lm["paged_decode"], lm
         merge_peak = summary["peak_reserved_kv_bytes"]
         missing = [k for k in ("paged_decode", "chunked_prefill")
                    if lm[k] <= 0]
@@ -2210,6 +2548,8 @@ def main(argv=None):
     if "parity_quant" in phases:
         for kvd in KV_DTYPES:
             phase_parity_quant(torch, kvd)
+    if "decode_agreement" in phases:
+        phase_decode_agreement(torch, args.ab_parent)
     if "profile" in phases:
         phase_profile(torch, args.n_layers, args.profile_out)
     if "profile_encdec" in phases:

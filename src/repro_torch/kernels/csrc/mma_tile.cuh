@@ -101,6 +101,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The pair (x, y) as the sum of N bf16x2 registers: part i is what parts
+// 0..i-1 leave, rounded to nearest even (each rest is exact in f32). Two
+// parts hold about 16 significant bits, three about 24, so a product with
+// an exact bf16 operand taken as N mma keeps that precision (the split-KV
+// decode kernel's P.V).
+template <int N>
+__device__ __forceinline__ void pack_bf16_parts(float x, float y,
+                                                uint32_t (&p)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    p[i] = *reinterpret_cast<const uint32_t*>(&h);
+    const float2 hf = __bfloat1622float2(h);
+    x -= hf.x;
+    y -= hf.y;
+  }
+}
+
 // One online-softmax step over a warp's score fragments s[NT][4]: NT tiles
 // of 8 keys of raw dot products q.k, -inf where masked. scale_log2 is
 // log2(e) / sqrt(hd), so 2^(x scale_log2) = e^(x / sqrt(hd)). The thread's
@@ -138,6 +156,40 @@ __device__ __forceinline__ void online_softmax_step(float (&s)[NT][4],
       }
     }
     corr[i] = exp2_approx((m[i] - mx) * scale_log2);
+    l[i] = l[i] * corr[i] + psum;
+    m[i] = mx;
+  }
+}
+
+// The same step over scores already scaled by 1 / sqrt(hd) (-inf where
+// masked), in the plain version's arithmetic: p = expf(s - m_new) and
+// corr = expf(m_prev - m_new) with the accurate expf, m the row's running
+// max of scaled scores (the split-KV decode kernel, whose partials must
+// agree with an f32 softmax to a few ulps).
+template <int NT>
+__device__ __forceinline__ void online_softmax_step_exp(float (&s)[NT][4],
+                                                        float (&m)[2],
+                                                        float (&l)[2],
+                                                        float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = m[i];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      mx = fmaxf(mx, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float psum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 2 * i; e < 2 * i + 2; ++e) {
+        const float p = expf(s[nt][e] - mx);
+        s[nt][e] = p;
+        psum += p;
+      }
+    }
+    corr[i] = expf(m[i] - mx);
     l[i] = l[i] * corr[i] + psum;
     m[i] = mx;
   }

@@ -1,6 +1,8 @@
-// Paged near-window GQA decode attention for Hopper (sm_90a): two kernels.
+// Paged near-window GQA decode attention for Hopper (sm_90a).
 //
-// paged_decode_kernel replaces the Pallas TPU kernel `_decode_kernel` (with
+// paged_decode_kernel (and, for bf16 q in the engine form without the far
+// view, paged_decode_split_kernel with paged_decode_combine_kernel, below)
+// replaces the Pallas TPU kernel `_decode_kernel` (with
 // its update `_online_block_update`) in src/repro/kernels/paged_attention.py,
 // and computes what `ref.paged_decode_attention_ref(..., cur_k, cur_v,
 // skip_extent, far_k, far_v, far_table, far_valid)` computes: the engine's
@@ -52,7 +54,50 @@
 // in a fixed order (no atomics), so the host's utility EMA -- and the far
 // table it selects -- is the same from run to run.
 //
-// Design. One thread block per (slot, kv head); a runtime loop inside the
+// Split-KV (bf16 q; bf16, fp8_e4m3 and int8 pools; the engine form
+// without the far view): paged_decode_split_kernel on the tensor cores,
+// then paged_decode_combine_kernel. Grid (B, KV * ceil(n_rep / 16), S): a
+// CTA of 4 warps owns up to 16 grouped query heads of one kv head (rows
+// past n_rep zero) and split s of the window, blocks [s nbs, (s + 1) nbs)
+// of [0, NB) with nbs = ceil(NB / S). S comes from the shapes and the SM
+// count alone (paged_attention.split_count), never from seq_lens or
+// window_base, so one shape always launches one grid. The split's rows are
+// walked in 64-key tiles from its first row; with skip_extent only the
+// tiles that meet ref.active_block_extent's blocks. Each key row is
+// gathered through block_table (any BT) with 16-byte cp.async copies into
+// a 2-stage ring; only rows at window positions (pos >= 0, pos > t - W,
+// pos < t) are read, every other row is zero-filled and masked, decided
+// from positions alone, so a tile outside the extent is a bitwise no-op
+// and skip on == off bitwise. Layout: the query rows sit on the 16-row
+// side of mma.m16n8k16 (S = Q.K^T, 5 of 16 rows used at qwen's n_rep 5):
+// each warp takes 16 keys of the tile, its score fragment is the A
+// fragment of P.V with no shuffle, and decode is bound by bytes, so the
+// idle rows cost nothing that shows. A narrow pool stages raw codes and
+// widens them to bf16 in shared memory (exact); k_scale multiplies the
+// score columns, v_scale p's columns, in f32.
+//
+// Precision. The split kernel stays as close to the plain version as the
+// f32 CUDA-core kernel it replaces:
+//   * the softmax follows the plain version's arithmetic: scores scaled by
+//     1 / sqrt(hd), then p = expf(s - m) with the accurate expf, m a
+//     running max;
+//   * P.V takes p as a sum of bf16 parts (two for a bf16 pool, three for a
+//     narrow one; one mma each), so p keeps ~16 / ~24 bits; the scores'
+//     products are exact (bytes bound the kernel; the extra mma hide
+//     behind the loads);
+//   * each mma starts from a zero accumulator and its result is added to
+//     the running scores or output in f32: the tensor cores truncate as
+//     they accumulate, and chained over a split's k-steps and p's parts
+//     that rounded 53-55% of the outputs apart from the plain version's
+//     toward zero (PERF.md, PR 28).
+// After the walk the 4 warps' (m, l, acc) are folded in the order 0..3 and
+// written as the split's f32 partial. The combine (one warp per (slot,
+// query head)) folds the S partials in the order 0..S-1, then the current
+// token once, last, and writes acc / max(l, 1e-20) in bf16; a retired slot
+// writes zeros. No atomics: run == run bitwise.
+//
+// Design of paged_decode_kernel (f32 q, the far view, the pool-only form).
+// One thread block per (slot, kv head); a runtime loop inside the
 // block walks the window blocks [ext_lo, ext_hi) -- the TPU's sequential
 // grid axis becomes this loop. The extent is derived in-kernel from
 // window_base / seq_lens / slot_active with the formula of
@@ -83,11 +128,14 @@
 // fast: 64 thread blocks fill half the card and the dots run on CUDA
 // cores (no wgmma/TMA, no split-KV), which is what holds them back, not
 // their loads; the double-buffered kernel hides an 8-16 KiB block load at
-// most. The tiles stay f32 in shared memory whatever the pool's type.
+// most. The tiles stay f32 in shared memory whatever the pool's type. The
+// split-KV kernel answers both: at that shape S = 5 gives 320 CTAs (2.4 an
+// SM), and its dots run on the tensor cores.
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "mma_tile.cuh"
 #include "online_softmax.cuh"
 
 namespace {
@@ -222,6 +270,600 @@ __global__ void paged_decode_kernel(
       util[c] = u;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// the engine form with bf16 q: split-KV on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitKeys = 64;   // keys per K/V tile, 16 per warp
+constexpr int kSplitWarps = 4;
+constexpr int kSplitRows = 16;   // query rows of a CTA (grouped heads, padded)
+constexpr int kSplitPad = 8;     // bf16 elements added to each staged row
+constexpr int kMergePad = 4;     // f32 elements added to each merge row
+
+// Q tile, then the larger of: the K/V staging (bf16 pool: 2 stages of K
+// and of V; narrow pool: one bf16 K/V tile, 2 stages of raw codes and of
+// each key row's k and v scale) and the warps' partials for the merge.
+__host__ __device__ constexpr size_t split_stage_bytes(int hd, bool quant) {
+  return quant ? (size_t)2 * kSplitKeys * (hd + kSplitPad) * 2 +
+                     (size_t)4 * kSplitKeys * hd +
+                     (size_t)4 * kSplitKeys * sizeof(float)
+               : (size_t)4 * kSplitKeys * (hd + kSplitPad) * 2;
+}
+__host__ __device__ constexpr size_t split_merge_bytes(int hd) {
+  return (size_t)kSplitWarps * kSplitRows * (hd + kMergePad + 2) *
+         sizeof(float);
+}
+__host__ __device__ constexpr size_t split_smem_bytes(int hd, bool quant) {
+  return (size_t)kSplitRows * (hd + kSplitPad) * 2 +
+         (split_stage_bytes(hd, quant) > split_merge_bytes(hd)
+              ? split_stage_bytes(hd, quant)
+              : split_merge_bytes(hd));
+}
+
+// Two narrow codes (x's low 16 bits, the first code in the low byte) ->
+// two bf16 in one register, exactly (chunked_prefill.cu's widening).
+template <typename TP>
+__device__ __forceinline__ uint32_t widen2(uint32_t x);
+template <>
+__device__ __forceinline__ uint32_t widen2<int8_t>(uint32_t x) {
+  return kvrm::mma::pack_bf16((float)(int8_t)(x & 0xffu),
+                              (float)(int8_t)(x >> 8));
+}
+template <>
+__device__ __forceinline__ uint32_t widen2<__nv_fp8_e4m3>(uint32_t x) {
+  const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+      (__nv_fp8x2_storage_t)x, __NV_E4M3)));
+  return kvrm::mma::pack_bf16(f.x, f.y);
+}
+
+// One CTA: slot b, up to 16 grouped query heads of kv head g, window blocks
+// [s nbs, (s + 1) nbs) of [0, NB). Writes that split's f32 partial (m, l,
+// acc) of each of its query rows; the combine kernel folds them.
+template <int HD, typename TP>
+__global__ void __launch_bounds__(kSplitWarps * 32) paged_decode_split_kernel(
+    const __nv_bfloat16* __restrict__ q,  // (B, H, HD)
+    const TP* __restrict__ pool_k,        // (P, BT, KV, HD)
+    const TP* __restrict__ pool_v,        // (P, BT, KV, HD)
+    const int* __restrict__ block_table,  // (B, NB)
+    const int* __restrict__ window_base,  // (B,)
+    const int* __restrict__ seq_lens,     // (B,)  position of the current token
+    const int* __restrict__ slot_active,  // (B,)
+    const float* __restrict__ k_scale,    // (P, KV), narrow pools only
+    const float* __restrict__ v_scale,    // (P, KV), narrow pools only
+    float* __restrict__ work,  // m (B, H, S), l (B, H, S), acc (B, H, S, HD)
+    int H, int KV, int BT, int NB, int nbs, int near_window, int skip_extent,
+    float scale) {
+  namespace mm = kvrm::mma;
+  constexpr bool kQuant = !std::is_same<TP, __nv_bfloat16>::value;
+  constexpr int LD = HD + kSplitPad;   // staged bf16 row stride (elements)
+  constexpr int LM = HD + kMergePad;   // merge row stride (floats)
+  constexpr int CPR = HD / 8;          // 16-byte chunks per bf16 row
+  constexpr int CPRQ = HD / 16;        // 16-byte chunks per row of codes
+  constexpr int KC = HD / 16;          // k-steps of Q.K^T; d pairs of P.V
+  constexpr int NTHR = kSplitWarps * 32;
+  constexpr int kStages = kQuant ? 1 : 2;   // bf16 K/V tiles
+  // bf16 parts of p in P.V: ~16 bits for a bf16 pool (the plain version
+  // rounds p to bf16 there), ~24 for a narrow pool (it keeps p in f32)
+  constexpr int kParts = kQuant ? 3 : 2;
+  static_assert(kSplitKeys * CPR % NTHR == 0, "whole passes over a tile");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + kSplitRows * LD;          // kStages x 64 x LD
+  __nv_bfloat16* Vs = Ks + kStages * kSplitKeys * LD;
+  // narrow pool only: 2 stages of raw codes (64 x HD) and of scales
+  TP* Kr = reinterpret_cast<TP*>(Vs + kStages * kSplitKeys * LD);
+  TP* Vr = Kr + 2 * kSplitKeys * HD;
+  float* Ksc = reinterpret_cast<float*>(Vr + 2 * kSplitKeys * HD);
+  float* Vsc = Ksc + 2 * kSplitKeys;
+
+  const int b = blockIdx.x, s = blockIdx.z;
+  const int B = gridDim.x, S = gridDim.z;
+  const int n_rep = H / KV;
+  const int QG = (n_rep + kSplitRows - 1) / kSplitRows;
+  const int g = blockIdx.y / QG;
+  // the query head of this CTA's row 0
+  const int h0 = g * n_rep + (blockIdx.y - g * QG) * kSplitRows;
+  const int nq = min(kSplitRows, (g + 1) * n_rep - h0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (!(slot_active[b] > 0)) return;  // the combine writes the zeros
+  const int wb = window_base[b], t = seq_lens[b];
+
+  // this split's window rows [i_lo, i_hi) (row idx at position wb + idx),
+  // and the rows holding keys of the window: pos >= 0, pos > t - W,
+  // pos < t: [f_lo, f_hi). Every other row is zero-filled, never read
+  const int i_lo = min(s * nbs, NB) * BT, i_hi = min((s + 1) * nbs, NB) * BT;
+  const int f_lo = max(i_lo, max(0, t + 1 - near_window) - wb);
+  const int f_hi = min(i_hi, t - wb);
+  // 64-row tiles from i_lo; with skip_extent only those that meet
+  // ref.active_block_extent's blocks. Tiles outside it hold no key of the
+  // window, so they leave (m, l, acc) as they were: skip on == off bitwise
+  int k_lo = 0, k_hi = (i_hi - i_lo + kSplitKeys - 1) / kSplitKeys;
+  if (skip_extent) {
+    const int lo_pos = max(0, t + 1 - near_window);
+    const int lo = min(max(kvrm::floordiv(lo_pos - wb, BT), 0), NB);
+    const int hi = max(min(max(kvrm::floordiv(t - wb, BT) + 1, 0), NB), lo);
+    const int e_lo = max(lo * BT, i_lo), e_hi = min(hi * BT, i_hi);
+    k_lo = e_hi > e_lo ? (e_lo - i_lo) / kSplitKeys : 0;
+    k_hi = e_hi > e_lo ? (e_hi - i_lo + kSplitKeys - 1) / kSplitKeys : 0;
+  }
+  const int n_tiles = k_hi - k_lo;
+
+  const size_t rstride = (size_t)KV * HD;
+  const int* tbl = block_table + (size_t)b * NB;
+  // pool offset (elements) of window row idx, column d of kv head g
+  auto pool_off = [&](int idx, int d) {
+    const int blk = __ldg(tbl + idx / BT);
+    return ((size_t)blk * BT + idx % BT) * rstride + (size_t)g * HD + d;
+  };
+
+  // Q rows past nq are zero-filled (their results are never stored)
+  const __nv_bfloat16* qb = q + ((size_t)b * H + h0) * HD;
+  for (int c = tid; c < kSplitRows * CPR; c += NTHR) {
+    const int m = c / CPR, d = (c - m * CPR) * 8;
+    const bool ok = m < nq;
+    mm::cp_async16(Qs + m * LD + d, ok ? qb + (size_t)m * HD + d : q, ok);
+  }
+  mm::cp_async_commit();  // Q
+  if (n_tiles > 0) {      // tile k_lo into stage 0 (inline, as below)
+    const int i0 = i_lo + k_lo * kSplitKeys;
+    if constexpr (!kQuant) {
+#pragma unroll
+      for (int i = 0; i < kSplitKeys * CPR / NTHR; ++i) {
+        const int c = tid + i * NTHR, jj = c / CPR, d = (c - jj * CPR) * 8;
+        const int idx = i0 + jj;
+        const bool ok = idx >= f_lo && idx < f_hi;
+        const size_t o = ok ? pool_off(idx, d) : 0;
+        mm::cp_async16(Ks + jj * LD + d, pool_k + o, ok);
+        mm::cp_async16(Vs + jj * LD + d, pool_v + o, ok);
+      }
+    } else {
+      for (int c = tid; c < kSplitKeys * CPRQ; c += NTHR) {
+        const int jj = c / CPRQ, d = (c - jj * CPRQ) * 16;
+        const int idx = i0 + jj;
+        const bool ok = idx >= f_lo && idx < f_hi;
+        const size_t o = ok ? pool_off(idx, d) : 0;
+        mm::cp_async16(Kr + jj * HD + d, pool_k + o, ok);
+        mm::cp_async16(Vr + jj * HD + d, pool_v + o, ok);
+      }
+      if (tid < kSplitKeys) {
+        const int idx = i0 + tid;
+        const bool ok = idx >= f_lo && idx < f_hi;
+        const size_t o = ok ? (size_t)__ldg(tbl + idx / BT) * KV + g : 0;
+        mm::cp_async4(Ksc + tid, k_scale + o, ok);
+        mm::cp_async4(Vsc + tid, v_scale + o, ok);
+      }
+    }
+  }
+  mm::cp_async_commit();  // tile k_lo (empty when the split has none)
+
+  // this thread's C rows qr, qr + 8 and key columns qc2, qc2 + 1 of each
+  // 8-key tile; ldmatrix row addresses of this lane, as in prefill_flash.cu
+  const int qr = lane >> 2, qc2 = (lane & 3) * 2;
+  const __nv_bfloat16* q_lane = Qs + (lane & 15) * LD + (lane >> 4) * 8;
+  const int k_lane = ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
+  const int v_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+
+  float acc[2 * KC][4];
+#pragma unroll
+  for (int dt = 0; dt < 2 * KC; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  float m_run[2] = {kvrm::kNegInit, kvrm::kNegInit};
+  float l_run[2] = {0.f, 0.f};
+
+  constexpr bool kQReg = HD <= 128;
+  uint32_t qf[kQReg ? KC : 1][4];
+  if constexpr (kQReg) {
+    if (n_tiles > 0) {
+      mm::cp_async_wait<1>();  // Q has landed (tile k_lo may be in flight)
+      __syncthreads();
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+        mm::ldmatrix_x4(qf[kc], q_lane + kc * 16);
+    }
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {  // tile it + 1 into stage (it + 1) & 1
+      const int st = (it + 1) & 1;
+      const int i0 = i_lo + (k_lo + it + 1) * kSplitKeys;
+      if constexpr (!kQuant) {
+#pragma unroll
+        for (int i = 0; i < kSplitKeys * CPR / NTHR; ++i) {
+          const int c = tid + i * NTHR, jj = c / CPR, d = (c - jj * CPR) * 8;
+          const int idx = i0 + jj;
+          const bool ok = idx >= f_lo && idx < f_hi;
+          const size_t o = ok ? pool_off(idx, d) : 0;
+          const int so = (st * kSplitKeys + jj) * LD + d;
+          mm::cp_async16(Ks + so, pool_k + o, ok);
+          mm::cp_async16(Vs + so, pool_v + o, ok);
+        }
+      } else {
+        for (int c = tid; c < kSplitKeys * CPRQ; c += NTHR) {
+          const int jj = c / CPRQ, d = (c - jj * CPRQ) * 16;
+          const int idx = i0 + jj;
+          const bool ok = idx >= f_lo && idx < f_hi;
+          const size_t o = ok ? pool_off(idx, d) : 0;
+          const int so = (st * kSplitKeys + jj) * HD + d;
+          mm::cp_async16(Kr + so, pool_k + o, ok);
+          mm::cp_async16(Vr + so, pool_v + o, ok);
+        }
+        if (tid < kSplitKeys) {
+          const int idx = i0 + tid;
+          const bool ok = idx >= f_lo && idx < f_hi;
+          const size_t o = ok ? (size_t)__ldg(tbl + idx / BT) * KV + g : 0;
+          mm::cp_async4(Ksc + st * kSplitKeys + tid, k_scale + o, ok);
+          mm::cp_async4(Vsc + st * kSplitKeys + tid, v_scale + o, ok);
+        }
+      }
+    }
+    mm::cp_async_commit();    // (empty past the last tile)
+    mm::cp_async_wait<1>();   // this thread's copies of tile it have landed
+    __syncthreads();          // ... and every thread's
+    if constexpr (kQuant) {
+      // widen stage it & 1's codes into the bf16 tile: 16 codes a chunk
+      const TP* kr = Kr + (it & 1) * kSplitKeys * HD;
+      const TP* vr = Vr + (it & 1) * kSplitKeys * HD;
+      for (int c = tid; c < kSplitKeys * CPRQ; c += NTHR) {
+        const int jj = c / CPRQ, d = (c - jj * CPRQ) * 16;
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          const uint4 raw =
+              *reinterpret_cast<const uint4*>((kv ? vr : kr) + jj * HD + d);
+          const uint32_t x[4] = {raw.x, raw.y, raw.z, raw.w};
+          uint32_t w[8];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            w[2 * e] = widen2<TP>(x[e] & 0xffffu);
+            w[2 * e + 1] = widen2<TP>(x[e] >> 16);
+          }
+          uint4* dst = reinterpret_cast<uint4*>((kv ? Vs : Ks) + jj * LD + d);
+          dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+          dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+        }
+      }
+      __syncthreads();
+    }
+    const int stage = kQuant ? 0 : (it & 1) * kSplitKeys * LD;
+    const __nv_bfloat16* ks = Ks + stage + warp * 16 * LD;   // this warp's
+    const __nv_bfloat16* vs = Vs + stage + warp * 16 * LD;   // 16 keys
+
+    // S = Q . K^T: 16 rows x 16 keys per warp
+    float sc[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t a[4];
+      if constexpr (kQReg) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kc][e];
+      } else {
+        mm::ldmatrix_x4(a, q_lane + kc * 16);
+      }
+      uint32_t bk[4];
+      mm::ldmatrix_x4(bk, ks + k_lane + kc * 16);
+      // each k-step from a zero accumulator, added in f32 (round to
+      // nearest): the tensor cores' own accumulation truncates
+      float d[2][4] = {};
+      mm::mma_bf16(d[0], a, bk[0], bk[1]);
+      mm::mma_bf16(d[1], a, bk[2], bk[3]);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] += d[nt][e];
+    }
+    // tile-relative key column of sc[nt][e]: warp * 16 + nt * 8 + qc2 + (e & 1)
+    const int key0 = (it & 1) * kSplitKeys + warp * 16 + qc2;  // in Ksc / Vsc
+    if constexpr (kQuant) {  // k_scale of each key's block, in f32
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 k2 = *reinterpret_cast<const float2*>(Ksc + key0 + nt * 8);
+        sc[nt][0] *= k2.x;
+        sc[nt][1] *= k2.y;
+        sc[nt][2] *= k2.x;
+        sc[nt][3] *= k2.y;
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)   // scaled scores, as the plain version's
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] *= scale;
+    // keys outside [f_lo, f_hi) are masked (the same for every row)
+    const int idx0 = i_lo + (k_lo + it) * kSplitKeys + warp * 16;
+    if (idx0 < f_lo || idx0 + 16 > f_hi) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int idx = idx0 + nt * 8 + qc2 + (e & 1);
+          if (!(idx >= f_lo && idx < f_hi)) sc[nt][e] = -INFINITY;
+        }
+    }
+
+    float corr[2];
+    mm::online_softmax_step_exp<2>(sc, m_run, l_run, corr);
+#pragma unroll
+    for (int dt = 0; dt < 2 * KC; ++dt) {
+      acc[dt][0] *= corr[0];
+      acc[dt][1] *= corr[0];
+      acc[dt][2] *= corr[1];
+      acc[dt][3] *= corr[1];
+    }
+    if constexpr (kQuant) {  // v_scale of each key's block, in f32
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 v2 = *reinterpret_cast<const float2*>(Vsc + key0 + nt * 8);
+        sc[nt][0] *= v2.x;
+        sc[nt][1] *= v2.y;
+        sc[nt][2] *= v2.x;
+        sc[nt][3] *= v2.y;
+      }
+    }
+
+    // acc += P . V, p as kParts bf16 A fragments straight from sc
+    uint32_t pp[kParts][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // A register e: sc[e >> 1][(e & 1) * 2 ..]
+      uint32_t parts[kParts];
+      mm::pack_bf16_parts<kParts>(sc[e >> 1][(e & 1) * 2],
+                                  sc[e >> 1][(e & 1) * 2 + 1], parts);
+#pragma unroll
+      for (int k = 0; k < kParts; ++k) pp[k][e] = parts[k];
+    }
+#pragma unroll
+    for (int dp = 0; dp < KC; ++dp) {
+      uint32_t bv[4];
+      mm::ldmatrix_x4_trans(bv, vs + v_lane + dp * 16);
+      // the parts from the smallest, into a zero accumulator, then added
+      // to acc in f32 (round to nearest), as for the scores
+      float d[2][4] = {};
+#pragma unroll
+      for (int k = kParts - 1; k >= 0; --k) {
+        mm::mma_bf16(d[0], pp[k], bv[0], bv[1]);
+        mm::mma_bf16(d[1], pp[k], bv[2], bv[3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[2 * dp][e] += d[0][e];
+        acc[2 * dp + 1][e] += d[1][e];
+      }
+    }
+    __syncthreads();  // the stage (the bf16 tile) is refilled next
+  }
+  mm::cp_async_wait<0>();  // (Q, when the split had no tile)
+  __syncthreads();
+
+  // the row sums: the quad's four shares
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+  }
+  // each warp's (m, l, acc) into shared memory (over the staging), then
+  // the warps folded in the order 0..3
+  float* Mw = reinterpret_cast<float*>(Ks);           // kSplitWarps x 16
+  float* Lw = Mw + kSplitWarps * kSplitRows;          // kSplitWarps x 16
+  float* Aw = Lw + kSplitWarps * kSplitRows;          // kSplitWarps x 16 x LM
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * kSplitRows + qr + 8 * i;
+    if ((lane & 3) == 0) {
+      Mw[r] = m_run[i];
+      Lw[r] = l_run[i];
+    }
+#pragma unroll
+    for (int dt = 0; dt < 2 * KC; ++dt)
+      *reinterpret_cast<float2*>(Aw + r * LM + dt * 8 + qc2) =
+          make_float2(acc[dt][2 * i], acc[dt][2 * i + 1]);
+  }
+  __syncthreads();
+  float* wm = work;
+  float* wl = work + (size_t)B * H * S;
+  float* wa = work + (size_t)2 * B * H * S;
+  for (int e = tid; e < nq * HD; e += NTHR) {
+    const int r = e / HD, d = e - r * HD;
+    float mx = Mw[r];
+#pragma unroll
+    for (int w = 1; w < kSplitWarps; ++w)
+      mx = fmaxf(mx, Mw[w * kSplitRows + r]);
+    float l = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const int rw = w * kSplitRows + r;
+      const float c = expf(Mw[rw] - mx);
+      l += Lw[rw] * c;
+      a += Aw[rw * LM + d] * c;
+    }
+    const size_t row = ((size_t)b * H + h0 + r) * S + s;
+    wa[row * HD + d] = a;
+    if (d == 0) {
+      wm[row] = mx;
+      wl[row] = l;
+    }
+  }
+}
+
+// One warp per (slot, query head): the S partials folded in the order
+// 0..S-1, then the current token (q . cur_k, p times cur_v) once, last;
+// out = acc / max(l, 1e-20) in bf16. A retired slot writes zeros. Every
+// load of a pass is issued before its first use (the partials 8 splits at
+// a time), so a call waits on memory about twice, not once per split.
+__global__ void __launch_bounds__(128) paged_decode_combine_kernel(
+    const float* __restrict__ work,         // as paged_decode_split_kernel's
+    const __nv_bfloat16* __restrict__ q,      // (B, H, hd)
+    const __nv_bfloat16* __restrict__ cur_k,  // (B, KV, hd)
+    const __nv_bfloat16* __restrict__ cur_v,  // (B, KV, hd)
+    const int* __restrict__ slot_active,      // (B,)
+    __nv_bfloat16* __restrict__ out,          // (B, H, hd)
+    int B, int H, int KV, int hd, int S, float scale) {
+  constexpr int kPer = 256 / 32;  // hd <= 256: elements per lane
+  constexpr int kBatch = 8;       // splits whose partials load together
+  const int row = blockIdx.x * 4 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= B * H) return;
+  const int b = row / H, g = (row - b * H) / (H / KV);
+  const int nj = (hd - lane + 31) / 32;  // this lane's columns lane + 32 j
+  const __nv_bfloat16* qr = q + (size_t)row * hd;
+  const __nv_bfloat16* ck = cur_k + ((size_t)b * KV + g) * hd;
+  const __nv_bfloat16* cv = cur_v + ((size_t)b * KV + g) * hd;
+  const float* wm = work + (size_t)row * S;
+  const float* wl = work + (size_t)B * H * S + (size_t)row * S;
+  const float* wa = work + (size_t)2 * B * H * S + (size_t)row * S * hd;
+  const bool active = slot_active[b] > 0;
+  float qv[kPer], kv[kPer], vv[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const bool ok = j < nj;
+    qv[j] = ok ? __bfloat162float(qr[lane + 32 * j]) : 0.f;
+    kv[j] = ok ? __bfloat162float(ck[lane + 32 * j]) : 0.f;
+    vv[j] = ok ? __bfloat162float(cv[lane + 32 * j]) : 0.f;
+  }
+  // lane s holds split s's m and l (S <= 32; more in further passes)
+  const float m0 = lane < S ? wm[lane] : -INFINITY;
+  const float l0 = lane < S ? wl[lane] : 0.f;
+  __nv_bfloat16* o = out + (size_t)row * hd;
+  if (!active) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (j < nj) o[lane + 32 * j] = __float2bfloat16(0.f);
+    return;
+  }
+  // the current token's scaled score, the same in every lane (xor
+  // butterfly)
+  float sc = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) sc = fmaf(qv[j], kv[j], sc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sc += __shfl_xor_sync(0xffffffffu, sc, off);
+  sc *= scale;
+  // the max over the splits' m and the current token's score (any order)
+  float mx = fmaxf(sc, m0);
+  for (int s = 32 + lane; s < S; s += 32) mx = fmaxf(mx, wm[s]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  float l = 0.f, acc[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) acc[j] = 0.f;
+  for (int s0 = 0; s0 < S; s0 += kBatch) {
+    // this batch's partials, all loads first
+    float a[kBatch][kPer];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        a[k][j] = (s0 + k < S && j < nj)
+                      ? wa[(size_t)(s0 + k) * hd + lane + 32 * j] : 0.f;
+    const int src = s0 & 31;  // lane of split s0 in this pass's m, l
+    float ms = m0, ls = l0;
+    if (s0 >= 32) {
+      ms = s0 + lane - src < S && lane >= src ? wm[s0 - src + lane] : 0.f;
+      ls = s0 + lane - src < S && lane >= src ? wl[s0 - src + lane] : 0.f;
+    }
+    const float cs = expf(ms - mx);
+    // splits s0 .. s0 + 7 in order, the same in every lane
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (s0 + k >= S) break;
+      const float c = __shfl_sync(0xffffffffu, cs, src + k);
+      l = fmaf(__shfl_sync(0xffffffffu, ls, src + k), c, l);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) acc[j] = fmaf(a[k][j], c, acc[j]);
+    }
+  }
+  const float pc = expf(sc - mx);
+  l += pc;
+  const float den = fmaxf(l, 1e-20f);
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+    if (j < nj)
+      o[lane + 32 * j] = __float2bfloat16(fmaf(pc, vv[j], acc[j]) / den);
+}
+
+cudaError_t launch_combine(const void* work, const void* q, const void* cur_k,
+                           const void* cur_v, const void* slot_active,
+                           void* out, int B, int H, int KV, int hd, int S,
+                           float scale, void* stream) {
+  if (hd > 256 || S < 1) return cudaErrorInvalidValue;
+  paged_decode_combine_kernel<<<(B * H + 3) / 4, 128, 0,
+                                (cudaStream_t)stream>>>(
+      (const float*)work, (const __nv_bfloat16*)q,
+      (const __nv_bfloat16*)cur_k, (const __nv_bfloat16*)cur_v,
+      (const int*)slot_active, (__nv_bfloat16*)out, B, H, KV, hd, S, scale);
+  return cudaGetLastError();
+}
+
+template <int HD, typename TP>
+cudaError_t launch_split(const void* q, const void* pool_k,
+                         const void* pool_v, const void* block_table,
+                         const void* window_base, const void* seq_lens,
+                         const void* slot_active, const void* k_scale,
+                         const void* v_scale, void* work, int B, int H,
+                         int KV, int BT, int NB, int S, int near_window,
+                         int skip_extent, float scale, void* stream) {
+  constexpr bool kQuant = !std::is_same<TP, __nv_bfloat16>::value;
+  const size_t smem = split_smem_bytes(HD, kQuant);
+  auto kernel = paged_decode_split_kernel<HD, TP>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int n_rep = H / KV;
+  dim3 grid(B, KV * ((n_rep + kSplitRows - 1) / kSplitRows), S);
+  kernel<<<grid, kSplitWarps * 32, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const TP*)pool_k, (const TP*)pool_v,
+      (const int*)block_table, (const int*)window_base, (const int*)seq_lens,
+      (const int*)slot_active, (const float*)k_scale, (const float*)v_scale,
+      (float*)work, H, KV, BT, NB, (NB + S - 1) / S, near_window,
+      skip_extent, scale);
+  return cudaGetLastError();
+}
+
+// The engine form with bf16 q (no far view): the split kernel, one
+// instantiation per hd (a multiple of 16 up to 256), then the combine.
+// S splits of [0, NB) (1 <= S <= NB); work holds B H S (hd + 2) f32.
+template <typename TP>
+int launch_split_decode(const void* q, const void* pool_k, const void* pool_v,
+                        const void* block_table, const void* window_base,
+                        const void* seq_lens, const void* slot_active,
+                        const void* cur_k, const void* cur_v,
+                        const void* k_scale, const void* v_scale, void* out,
+                        void* work, int B, int H, int KV, int hd, int BT,
+                        int NB, int S, int near_window, int skip_extent,
+                        float scale, void* stream) {
+  // 16-byte copies: 16-byte aligned q and pools (rows of hd * elem bytes,
+  // a multiple of 16 for every hd taken)
+  if (work == nullptr || S < 1 || S > NB ||
+      reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(pool_k) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(pool_v) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+#define KVRM_HD(n)                                                           \
+  case n:                                                                    \
+    err = launch_split<n, TP>(q, pool_k, pool_v, block_table, window_base,  \
+                              seq_lens, slot_active, k_scale, v_scale, work, \
+                              B, H, KV, BT, NB, S, near_window, skip_extent, \
+                              scale, stream);                                \
+    break;
+  switch (hd) {
+    KVRM_HD(16) KVRM_HD(32) KVRM_HD(48) KVRM_HD(64)
+    KVRM_HD(80) KVRM_HD(96) KVRM_HD(112) KVRM_HD(128)
+    KVRM_HD(144) KVRM_HD(160) KVRM_HD(176) KVRM_HD(192)
+    KVRM_HD(208) KVRM_HD(224) KVRM_HD(240) KVRM_HD(256)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef KVRM_HD
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_combine(work, q, cur_k, cur_v, slot_active, out, B, H,
+                             KV, hd, S, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -407,10 +1049,10 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
            const void* seq_lens, const void* slot_active, const void* cur_k,
            const void* cur_v, const void* k_scale, const void* v_scale,
            const void* far_k, const void* far_v, const void* far_table,
-           const void* far_valid, void* out, void* far_util, int B, int H,
-           int KV, int hd, int BT, int NB, int MAXC, int CAP,
-           int near_window, int skip_extent, float scale, int threads,
-           void* stream) {
+           const void* far_valid, void* out, void* far_util, void* work,
+           int B, int H, int KV, int hd, int BT, int NB, int MAXC, int CAP,
+           int splits, int near_window, int skip_extent, float scale,
+           int threads, void* stream) {
   constexpr bool kQuant = !std::is_same<T, TP>::value;
   const bool far = far_k != nullptr;
   const bool cur = cur_k != nullptr;
@@ -419,11 +1061,22 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
   if (!scales_fit<T, TP>(k_scale, v_scale) || (kQuant && far) ||
       (far && !cur) || cur != (cur_v != nullptr))
     return (int)cudaErrorInvalidValue;
+  // bf16 q in the engine form without the far view: the split-KV kernel
+  constexpr bool kSplit = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (kSplit) {
+    if (cur && !far)
+      return launch_split_decode<TP>(
+          q, pool_k, pool_v, block_table, window_base, seq_lens, slot_active,
+          cur_k, cur_v, k_scale, v_scale, out, work, B, H, KV, hd, BT, NB,
+          splits, near_window, skip_extent, scale, stream);
+  }
   const size_t smem = smem_bytes(H / KV, hd, BT, far ? CAP : 0);
   // (a quantized pool has no far instantiation: kFar = !kQuant)
-  auto kernel = far   ? paged_decode_kernel<T, TP, !kQuant, true>
-                : cur ? paged_decode_kernel<T, TP, false, true>
-                      : paged_decode_kernel<T, TP, false, false>;
+  auto kernel = far ? paged_decode_kernel<T, TP, !kQuant, true>
+                    : paged_decode_kernel<T, TP, false, false>;
+  if constexpr (!kSplit) {
+    if (cur && !far) kernel = paged_decode_kernel<T, TP, false, true>;
+  }
   cudaError_t err = fit_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B, KV);
@@ -476,30 +1129,52 @@ size_t paged_decode_smem_bytes(int n_rep, int hd, int BT, int CAP) {
   return smem_bytes(n_rep, hd, BT, CAP);
 }
 
+// The split-KV kernel's (bf16 q, the engine form without the far view), at
+// head size hd, for a bf16 (quant 0) or narrow (quant 1) pool.
+size_t paged_decode_split_smem_bytes(int hd, int quant) {
+  return split_smem_bytes(hd, quant != 0);
+}
+
 // The double-buffered kernel's: its tile and two stages of pool_elem-byte
 // pool elements.
 size_t paged_decode_db_smem_bytes(int n_rep, int hd, int BT, int pool_elem) {
   return db_smem_bytes(n_rep, hd, BT, pool_elem);
 }
 
+// The split-KV kernel's combine alone, on a workspace its split kernel
+// filled (S splits): the wrapper launches it with the split kernel; this
+// entry times it on its own.
+int paged_decode_combine_bf16(const void* work, const void* q,
+                              const void* cur_k, const void* cur_v,
+                              const void* slot_active, void* out, int B,
+                              int H, int KV, int hd, int S, float scale,
+                              void* stream) {
+  return (int)launch_combine(work, q, cur_k, cur_v, slot_active, out, B, H,
+                             KV, hd, S, scale, stream);
+}
+
 // One entry per (q dtype, pool dtype). Null cur_k / cur_v: the pool-only
 // form. Null far_k / far_v / far_table / far_valid / far_util: no far view.
 // k_scale / v_scale: (P, KV) f32 for a quantized pool, null otherwise.
+// bf16 q in the engine form without the far view runs the split-KV kernel
+// and its combine: work (B H splits (hd + 2) f32) and splits (1..NB, from
+// the shapes: paged_attention.split_count); the other forms ignore both.
 #define PAGED_DECODE_ENTRY(NAME, T, TP)                                      \
   int NAME(const void* q, const void* pool_k, const void* pool_v,           \
            const void* block_table, const void* window_base,                \
            const void* seq_lens, const void* slot_active, const void* cur_k, \
            const void* cur_v, const void* k_scale, const void* v_scale,     \
            const void* far_k, const void* far_v, const void* far_table,     \
-           const void* far_valid, void* out, void* far_util, int B, int H,  \
-           int KV, int hd, int BT, int NB, int MAXC, int CAP,               \
-           int near_window, int skip_extent, float scale, int threads,      \
-           void* stream) {                                                  \
+           const void* far_valid, void* out, void* far_util, void* work,    \
+           int B, int H, int KV, int hd, int BT, int NB, int MAXC, int CAP, \
+           int splits, int near_window, int skip_extent, float scale,       \
+           int threads, void* stream) {                                     \
     return launch<T, TP>(q, pool_k, pool_v, block_table, window_base,       \
                          seq_lens, slot_active, cur_k, cur_v, k_scale,      \
                          v_scale, far_k, far_v, far_table, far_valid, out,  \
-                         far_util, B, H, KV, hd, BT, NB, MAXC, CAP,         \
-                         near_window, skip_extent, scale, threads, stream); \
+                         far_util, work, B, H, KV, hd, BT, NB, MAXC, CAP,   \
+                         splits, near_window, skip_extent, scale, threads,  \
+                         stream);                                           \
   }
 
 PAGED_DECODE_ENTRY(paged_decode_bf16, __nv_bfloat16, __nv_bfloat16)

@@ -21,6 +21,13 @@ block's K/V staged in shared memory by ``cp.async`` (``dma=False``: the
 same two stages, loaded synchronously), bitwise equal to the pool-only
 ``prefetch_depth=0`` kernel.
 
+bf16 q in the engine form without the far view launches the split-KV
+kernel: ``split_count`` splits of the window, fixed by the shapes and the
+SM count, each written as an f32 partial (m, l, acc) by a tensor-core
+kernel, folded in a fixed order with the current token by a combine kernel
+(``paged_decode_combine``). ``split_partials`` and ``combine_plain`` are
+the two kernels' plain model; the CPU path is the reference's plain version.
+
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises. Nothing falls back.
 """
@@ -36,6 +43,8 @@ from repro_torch.kernels import ref, runtime
 NAME = "paged_decode"
 QUANT = NAME + "_quant"          # launch counter of the quantized branch
 DB = NAME + "_db"                # launch counter of the double-buffered kernel
+COMBINE = NAME + "_combine"      # launch counter of the split-KV combine
+runtime.LAUNCHES.setdefault(COMBINE, 0)   # (reset with the others)
 THREADS = 128
 MAX_SMEM = 227 * 1024            # H100 dynamic shared memory per block
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -45,6 +54,134 @@ _argtypes_set = False
 
 # the plain version of the same function (CPU path, and the card's yardstick)
 plain = ref.paged_decode_attention_ref
+
+# the split-KV kernel (csrc/paged_decode.cu: kSplitKeys, kSplitRows): keys
+# per K/V tile, query rows per CTA; the head sizes it is built for; the
+# CTAs per SM its split count aims at
+SPLIT_KEYS = 64
+SPLIT_ROWS = 16
+SPLIT_HEAD_SIZES = tuple(range(16, 257, 16))
+SPLIT_CTAS_PER_SM = 2
+_SM_COUNT = {}
+
+
+def check_split_hd(hd: int) -> None:
+    """The split-KV kernel (bf16 q) takes hd a multiple of 16 up to 256."""
+    if hd not in SPLIT_HEAD_SIZES:
+        raise ValueError(f"bf16 decode takes hd a multiple of 16 from 16 to "
+                         f"256 (the split-KV kernel), got hd={hd}")
+
+
+def split_count(B: int, KV: int, n_rep: int, NB: int, BT: int, hd: int,
+                n_sm: int) -> tuple:
+    """``(S, nbs)``: the split-KV kernel's splits of a window of NB blocks,
+    block ranges ``[s nbs, (s + 1) nbs)``, nbs = ceil(NB / S). From the
+    shapes and the SM count alone (never from lengths), so one shape
+    launches one grid. S aims at ``SPLIT_CTAS_PER_SM`` CTAs per SM over the
+    B x KV x ceil(n_rep / 16) CTAs of one split, at most one split per
+    ``SPLIT_KEYS`` window rows and per block, and none left empty."""
+    check_split_hd(hd)
+    ctas = B * KV * -(-n_rep // SPLIT_ROWS)
+    want = -(-SPLIT_CTAS_PER_SM * n_sm // max(ctas, 1))
+    most = max(1, min(NB, -(-NB * BT // SPLIT_KEYS)))
+    nbs = max(1, -(-NB // min(max(want, 1), most)))
+    return max(1, -(-NB // nbs)), nbs
+
+
+def split_partials(q, pool_k, pool_v, block_table, window_base, seq_lens,
+                   slot_active, *, near_window: int, splits: int,
+                   k_scale=None, v_scale=None, skip_extent: bool = True):
+    """Plain model of the split kernel: the workspace it writes, f32, flat:
+    m (B, H, S), l (B, H, S), acc (B, H, S, hd). For split s (window rows
+    of blocks ``[s nbs, (s + 1) nbs)``) and query head h: m the max score
+    s = q.k / sqrt(hd) over the split's keys (pos >= 0, pos > t - W, pos <
+    t; a narrow pool's k_scale on each key's q.k), l the sum of p = exp(s
+    - m), acc the sum of p v (v_scale on p); an empty split has m = -1e30,
+    l = acc = 0. Retired slots' rows are zeros (the kernel leaves them
+    unwritten; the combine never reads them)."""
+    B, H, hd = q.shape
+    P, BT, KV, _ = pool_k.shape
+    NB = block_table.shape[1]
+    n_rep = H // KV
+    nbs = -(-NB // splits)
+    W = NB * BT
+    tbl = block_table.long()
+    dev = q.device
+
+    def window(pool, scale):
+        win = ref._codes_f32(ref._bits(pool)[tbl], pool.dtype)
+        sc = (torch.ones(B, NB, KV, device=dev) if scale is None
+              else scale[tbl])                                   # (B, NB, KV)
+        return (win.reshape(B, W, KV, hd),
+                sc[:, :, None, :].expand(B, NB, BT, KV).reshape(B, W, KV))
+
+    win_k, ks = window(pool_k, k_scale)
+    win_v, vs = window(pool_v, v_scale)
+    pos = window_base.long()[:, None] + torch.arange(W, device=dev)[None, :]
+    t = seq_lens.long()[:, None]
+    valid = (pos < t) & (pos > t - near_window) & (pos >= 0)
+    valid &= (slot_active > 0)[:, None]
+    if skip_extent:
+        lo, hi = ref.active_block_extent(window_base, seq_lens, slot_active,
+                                         near_window=near_window, nb=NB,
+                                         bt=BT)
+        blk = torch.arange(W, device=dev)[None, :] // BT
+        valid &= (blk >= lo[:, None].long()) & (blk < hi[:, None].long())
+    qg = q.reshape(B, KV, n_rep, hd).float()
+    s = torch.einsum("bkrd,bwkd->bkrw", qg, win_k) * ks.permute(0, 2, 1)[
+        :, :, None, :] / math.sqrt(hd)
+    s = s.masked_fill(~valid[:, None, None, :], -math.inf)
+    # keys of each split side by side: (B, KV, n_rep, S, nbs BT)
+    pad = splits * nbs * BT - W
+    s = torch.nn.functional.pad(s, (0, pad), value=-math.inf)
+    s = s.reshape(B, KV, n_rep, splits, nbs * BT)
+    m = s.amax(dim=-1)
+    m = torch.where(torch.isinf(m), torch.full_like(m, -1e30), m)
+    p = torch.exp(s - m[..., None])
+    pv = p * torch.nn.functional.pad(vs.permute(0, 2, 1), (0, pad)).reshape(
+        B, KV, 1, splits, nbs * BT)
+    v = torch.nn.functional.pad(win_v, (0, 0, 0, 0, 0, pad)).reshape(
+        B, splits, nbs * BT, KV, hd)
+    acc = torch.einsum("bkrsw,bswkd->bkrsd", pv, v)
+    live = (slot_active > 0)[:, None, None, None]
+    m, l, acc = (torch.where(live, x, torch.zeros_like(x)) for x in
+                 (m, p.sum(dim=-1), acc.reshape(B, KV, n_rep, splits * hd)))
+    return torch.cat([m.reshape(-1), l.reshape(-1), acc.reshape(-1)])
+
+
+def combine_plain(work, q, cur_k, cur_v, slot_active, *, splits: int):
+    """The combine kernel's plain version: each head's ``splits`` partials
+    of ``work`` (the layout of :func:`split_partials`) folded with the
+    current token's score q.cur_k / sqrt(hd) and value cur_v; acc / max(l,
+    1e-20) in q's dtype; retired slots zero."""
+    B, H, hd = q.shape
+    KV = cur_k.shape[1]
+    n = B * H * splits
+    m = work[:n].reshape(B, H, splits)
+    l = work[n:2 * n].reshape(B, H, splits)
+    acc = work[2 * n:].reshape(B, H, splits, hd)
+    ck = cur_k.float().repeat_interleave(H // KV, dim=1)
+    cv = cur_v.float().repeat_interleave(H // KV, dim=1)
+    sc = (q.float() * ck).sum(dim=-1) / math.sqrt(hd)
+    mx = torch.maximum(m.amax(dim=-1), sc)
+    c = torch.exp(m - mx[..., None])
+    pc = torch.exp(sc - mx)
+    den = torch.clamp((l * c).sum(dim=-1) + pc, min=1e-20)
+    out = ((acc * c[..., None]).sum(dim=-2) + pc[..., None] * cv) \
+        / den[..., None]
+    out = torch.where((slot_active > 0)[:, None, None], out,
+                      torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (asked once per device)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def entry(lib, name: str, q_dtype, pool_dtype):
@@ -63,7 +200,7 @@ def _lib():
         for q in _DTYPES:
             for pool in (q, *QUANT_DTYPES):
                 fn = entry(lib, NAME, q, pool)
-                fn.argtypes = [P] * 17 + [I] * 10 + [ctypes.c_float, I, P]
+                fn.argtypes = [P] * 18 + [I] * 11 + [ctypes.c_float, I, P]
                 fn.restype = I
                 fn = entry(lib, DB, q, pool)
                 fn.argtypes = [P] * 10 + [I] * 9 + [ctypes.c_float, I, P]
@@ -71,6 +208,11 @@ def _lib():
         for fn in (lib.paged_decode_smem_bytes, lib.paged_decode_db_smem_bytes):
             fn.argtypes = [I, I, I, I]
             fn.restype = ctypes.c_size_t
+        lib.paged_decode_split_smem_bytes.argtypes = [I, I]
+        lib.paged_decode_split_smem_bytes.restype = ctypes.c_size_t
+        lib.paged_decode_combine_bf16.argtypes = [P] * 6 + [I] * 5 + [
+            ctypes.c_float, P]
+        lib.paged_decode_combine_bf16.restype = I
         _argtypes_set = True
     return lib
 
@@ -261,7 +403,20 @@ def paged_decode_attention(q, pool_k, pool_v, block_table, window_base,
         return out
     MAXC, CAP = (0, 0) if far_k is None else (far_k.shape[1],
                                               far_table.shape[1])
-    smem = lib.paged_decode_smem_bytes(H // KV, hd, BT, CAP)
+    # bf16 q, the engine form without the far view: the split-KV kernel and
+    # its combine, on a workspace of f32 partials
+    split = q.dtype == torch.bfloat16 and cur_k is not None and far_k is None
+    splits, work = 0, None
+    if split:
+        _check_split(q, pool_k, pool_v)
+        splits, _ = split_count(B, KV, H // KV, NB, BT, hd,
+                                sm_count(q.device))
+        smem = lib.paged_decode_split_smem_bytes(
+            hd, int(pool_k.dtype in QUANT_DTYPES))
+        work = torch.empty(B * H * splits * (hd + 2), dtype=torch.float32,
+                           device=q.device)
+    else:
+        smem = lib.paged_decode_smem_bytes(H // KV, hd, BT, CAP)
     _check_smem(smem, H // KV, hd, BT, CAP)
     # per-(slot, kv head) partials, summed below in a fixed order
     util = (None if far_k is None else
@@ -270,14 +425,57 @@ def paged_decode_attention(q, pool_k, pool_v, block_table, window_base,
     status = fn(p(q), p(pool_k), p(pool_v), p(block_table), p(window_base),
                 p(seq_lens), p(slot_active), p(cur_k), p(cur_v), p(k_scale),
                 p(v_scale), p(far_k), p(far_v), p(far_table), p(far_valid),
-                p(out), p(util),
-                B, H, KV, hd, BT, NB, MAXC, CAP, int(near_window),
+                p(out), p(util), p(work),
+                B, H, KV, hd, BT, NB, MAXC, CAP, splits, int(near_window),
                 int(bool(skip_extent)), 1.0 / math.sqrt(hd), THREADS,
                 runtime.stream_ptr(q.device))
     runtime.check_status(NAME, status)
     runtime.count_launch(NAME)
+    if split:
+        runtime.count_launch(COMBINE)
     if pool_k.dtype in QUANT_DTYPES:
         runtime.count_launch(QUANT)
     if util is None:
         return out
     return out, util.sum(dim=1)
+
+
+def _check_split(q, pool_k, pool_v):
+    """The split-KV kernel's rules beside ``_check``'s: hd a multiple of 16
+    up to 256 and 16-byte aligned q and pools (its 16-byte copies)."""
+    check_split_hd(q.shape[-1])
+    for name, x in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"bf16 decode needs {name} 16-byte aligned, its "
+                             f"data starts at {x.data_ptr():#x}")
+
+
+def paged_decode_combine(work, q, cur_k, cur_v, slot_active, *, splits: int):
+    """The split-KV kernel's combine alone, on a workspace in the layout of
+    :func:`split_partials`: q, cur_k, cur_v bf16 (the engine form). On the
+    CPU its plain version; on the card the combine kernel."""
+    if q.device.type == "cpu":
+        return combine_plain(work, q, cur_k, cur_v, slot_active,
+                             splits=splits)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    B, H, hd = q.shape
+    KV = cur_k.shape[1]
+    if q.dtype != torch.bfloat16 or cur_k.dtype != q.dtype \
+            or cur_v.dtype != q.dtype:
+        raise TypeError("the combine takes bf16 q, cur_k and cur_v")
+    if work.dtype != torch.float32 or work.numel() != B * H * splits * (
+            hd + 2) or hd > 256:
+        raise ValueError("work must hold B H splits (hd + 2) f32, hd <= 256")
+    for x in (work, q, cur_k, cur_v, slot_active):
+        if x.device != q.device or not x.is_contiguous():
+            raise ValueError("operands must be contiguous, on q's device")
+    lib = _lib()
+    p = runtime.ptr
+    out = torch.empty_like(q)
+    status = lib.paged_decode_combine_bf16(
+        p(work), p(q), p(cur_k), p(cur_v), p(slot_active), p(out), B, H, KV,
+        hd, splits, 1.0 / math.sqrt(hd), runtime.stream_ptr(q.device))
+    runtime.check_status(COMBINE, status)
+    runtime.count_launch(COMBINE)
+    return out
