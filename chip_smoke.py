@@ -17,9 +17,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              (atol 1e-4); the decode kernel also with the far view (its
              far_util within 1e-4), the summarize kernel within one bf16
              ulp / 1e-5 in f32; skip-extent on and off bitwise equal, a far
-             view with every entry masked bitwise equal to none (bf16:
-             to an empty far view, CAP 0, and within the tolerance of the
-             split-KV kernel that runs without one), far_util
+             view with every entry masked bitwise equal to none (bf16: the
+             split-KV kernel's far combine against its combine), far_util
              equal from run to run; CUDA-event times of the kernel, the
              plain version and one PyTorch library call (a yardstick the
              port never calls: ``scaled_dot_product_attention`` on the
@@ -56,8 +55,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. serve_full — the same trace through ``--mode full`` (near window 256,
              sv_chunk 64, farview_cap 16, so max_chunks 13): the same
              checks, summaries written and their blocks trimmed, the
-             chunked prefill executor off, the summarize and decode
-             launches each equal to steps x layers, and a peak of reserved
+             chunked prefill executor off, the summarize, decode (split)
+             and combine launches each equal to steps x layers (bf16 with
+             the far view runs the split-KV kernel), and a peak of reserved
              KV below the paged_merge phase's on the same trace.
 6. parity  — the serve trace at full width with 2 layers, through the
              kernels and through the plain versions: per-rid token streams
@@ -417,6 +417,10 @@ def far_inputs(torch, dev, dtype, *, B, KV, hd, MAXC, CAP, n_chunks, seed):
 
 
 def check_decode_far(torch, pa, dev, dtype, shape, far_shape, seed):
+    """The decode kernel with the far view (bf16: the split-KV kernel and
+    the combine's far form; f32: the CUDA-core kernel) against its plain
+    version, far_util within ``UTIL_TOL``; skip on == off, run == run and
+    an all-masked far view == no far view, bitwise."""
     d, W = decode_inputs(torch, dev, dtype, seed=seed, **shape)
     f = far_inputs(torch, dev, dtype, B=shape["B"], KV=shape["KV"],
                    hd=shape["hd"], seed=seed + 1, **far_shape)
@@ -431,18 +435,9 @@ def check_decode_far(torch, pa, dev, dtype, shape, far_shape, seed):
     masked = dict(f, far_valid=torch.zeros_like(f["far_valid"]))
     none, u_none = pa.paged_decode_attention(*args, skip_extent=True, **kw,
                                              **masked)
-    split = None
-    if dtype == torch.float32:
-        base = pa.paged_decode_attention(*args, skip_extent=True, **kw)
-    else:
-        # bf16 without the far view runs the split-KV kernel: the far
-        # kernel's no-op is held against its own run on an empty far view
-        # (CAP 0), and the split kernel's output within TOL
-        empty = dict(f, far_table=f["far_table"][:, :0].contiguous(),
-                     far_valid=f["far_valid"][:, :0].contiguous())
-        base, _ = pa.paged_decode_attention(*args, skip_extent=True, **kw,
-                                            **empty)
-        split = pa.paged_decode_attention(*args, skip_extent=True, **kw)
+    # without the far view: f32 the CUDA-core kernel's no-far instantiation,
+    # bf16 the split-KV kernel with the combine instead of its far form
+    base = pa.paged_decode_attention(*args, skip_extent=True, **kw)
     want, u_want = pa.plain(*args, skip_extent=True, **kw, **f)
     torch.cuda.synchronize()
     tag = f"({dtype}, {shape}, {far_shape})"
@@ -453,10 +448,6 @@ def check_decode_far(torch, pa, dev, dtype, shape, far_shape, seed):
     if not torch.equal(none, base) or u_none.any():
         raise AssertionError(f"paged_decode: an all-masked far view is not "
                              f"a bitwise no-op {tag}")
-    if split is not None and not torch.allclose(none.float(), split.float(),
-                                                **TOL["bfloat16"]):
-        raise AssertionError(f"paged_decode: an all-masked far view differs "
-                             f"from the split-KV kernel's output {tag}")
     err = (on.float() - want.float()).abs().max().item()
     uerr = (u_on - u_want).abs().max().item()
     if not torch.allclose(on.float(), want.float(), **TOL[str(dtype)[6:]]):
@@ -1053,43 +1044,102 @@ _PARENT_DECODE_LIBS = {}
 
 def parent_decode_lib(parent):
     """The decode kernels' library built from another checkout's
-    ``paged_decode.cu`` (``parent``: an unpacked tree of the commit before
-    the split-KV kernel), with the port's nvcc flags, once a process; its
-    engine entries bound with that commit's arguments (no workspace, no
-    split count)."""
+    ``paged_decode.cu`` (``parent``: an unpacked tree), with the port's nvcc
+    flags, once a process. Its engine entries are bound by what that source
+    exports: with the split-KV kernel (``paged_decode_split_smem_bytes``
+    present) 18 pointers (the workspace last) and 11 ints (the split count
+    after CAP), and the parent's own ``split_count`` from its
+    ``paged_attention.py``; before it 17 and 10, and no split count.
+    Returns ``dict(lib=..., split_count=... or None)``."""
     import ctypes
+    import importlib.util
     from repro_torch.kernels import runtime
     if parent in _PARENT_DECODE_LIBS:
         return _PARENT_DECODE_LIBS[parent]
-    csrc = Path(parent).resolve() / "src" / "repro_torch" / "kernels" / "csrc"
+    kdir = Path(parent).resolve() / "src" / "repro_torch" / "kernels"
+    csrc = kdir / "csrc"
     runtime.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = runtime.BUILD_DIR / "libpaged_decode-parent.so"
     subprocess.run([runtime.nvcc_path(), *runtime.NVCC_FLAGS, "-I", str(csrc),
                     "-o", str(out), str(csrc / "paged_decode.cu")],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
+    split = hasattr(lib, "paged_decode_split_smem_bytes")
+    n_ptr, n_int = (18, 11) if split else (17, 10)
     P, I = ctypes.c_void_p, ctypes.c_int
     for q in ("bf16", "f32"):
         for suffix in ("", "_fp8", "_int8"):
             fn = getattr(lib, f"paged_decode_{q}{suffix}")
-            fn.argtypes = [P] * 17 + [I] * 10 + [ctypes.c_float, I, P]
+            fn.argtypes = [P] * n_ptr + [I] * n_int + [ctypes.c_float, I, P]
             fn.restype = I
-    _PARENT_DECODE_LIBS[parent] = lib
-    return lib
+    count = None
+    if split:
+        spec = importlib.util.spec_from_file_location(
+            "parent_paged_attention", kdir / "paged_attention.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        count = mod.split_count
+    _PARENT_DECODE_LIBS[parent] = dict(lib=lib, split_count=count)
+    return _PARENT_DECODE_LIBS[parent]
+
+
+def parent_decode(torch, pa, parent, args, kw):
+    """One engine-form decode through the parent's own C entry (``parent``:
+    :func:`parent_decode_lib`'s dict) with the wrapper's arguments and its
+    allocations, as the wrapper makes them: the output, far_util and, for a
+    split-era parent with bf16 q, a workspace of the parent's
+    ``split_count`` splits; with the far view the wrapper's fixed-order
+    ``util.sum`` too. Returns the output."""
+    import math
+    from repro_torch.kernels import runtime
+    q, pool_k = args[0], args[1]
+    B, H, hd = q.shape
+    BT, KV = pool_k.shape[1], pool_k.shape[2]
+    NB = args[3].shape[1]
+    far = kw.get("far_k") is not None
+    MAXC, CAP = ((kw["far_k"].shape[1], kw["far_table"].shape[1]) if far
+                 else (0, 0))
+    out = torch.empty_like(q)
+    util = (torch.empty(B, KV, CAP, dtype=torch.float32, device=q.device)
+            if far else None)
+    p = runtime.ptr
+    ptrs = [p(x) for x in args] + [p(kw.get(k)) for k in (
+        "cur_k", "cur_v", "k_scale", "v_scale", "far_k", "far_v",
+        "far_table", "far_valid")] + [p(out), p(util)]
+    dims = [B, H, KV, hd, BT, NB, MAXC, CAP]
+    count = parent["split_count"]
+    if count is not None:
+        S, work = 0, None
+        if q.dtype == torch.bfloat16 and kw.get("cur_k") is not None:
+            S, _ = count(B, KV, H // KV, NB, BT, hd, pa.sm_count(q.device))
+            work = torch.empty(B * H * S * (hd + 2), dtype=torch.float32,
+                               device=q.device)
+        ptrs.append(p(work))
+        dims.append(S)
+    q_name = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    suffix = {torch.float8_e4m3fn: "_fp8", torch.int8: "_int8"}.get(
+        pool_k.dtype, "")
+    st = getattr(parent["lib"], f"paged_decode_{q_name}{suffix}")(
+        *ptrs, *dims, int(kw["near_window"]),
+        int(bool(kw.get("skip_extent", True))), 1.0 / math.sqrt(hd),
+        pa.THREADS, runtime.stream_ptr(q.device))
+    if st:
+        raise RuntimeError(f"parent decode kernel: cudaError {st}")
+    if util is not None:   # the wrapper's fixed-order sum, as the change's
+        util.sum(dim=1)
+    return out
 
 
 def decode_ab(torch, pa, res, parent, shape):
     """Parent, change, change, parent for the engine-form decode in one
     call: bf16 q at the main path's shape with each pool type and at the
-    seamless shape (the split-KV kernel against the CUDA-core kernel it
-    replaced), then paths whose kernel did not change: f32 q at the main
-    path's shape and bf16 with the far view. The other checkout's kernel is
-    called through its own C entry with the wrapper's arguments; both held
+    seamless shape, f32 q at the main path's shape, and bf16 with the far
+    view (serve_full's far shape). The other checkout's kernel is called
+    through its own C entry with the wrapper's arguments and allocations
+    (:func:`parent_decode`, a pre-split or a split-era parent); both held
     against the plain version (max abs err, row-scale bf16 ulps); SDPA and
     the bound beside the bf16 rows; one JSON line with the card."""
-    import math
-    from repro_torch.kernels import runtime
-    lib = parent_decode_lib(parent)
+    plib = parent_decode_lib(parent)
     dev = torch.device("cuda")
     d32, W32 = decode_inputs(torch, dev, torch.float32, seed=1, **shape)
     cases = [(k, *res[k]) for k in ("paged_decode", "paged_decode_fp8_e4m3",
@@ -1108,34 +1158,9 @@ def decode_ab(torch, pa, res, parent, shape):
                if k in d}
         scales = {k: d[k] for k in ("k_scale", "v_scale") if k in d}
         kw.update(far, **scales)
-        B, H, hd = d["q"].shape
-        KV, NB = d["pool_k"].shape[2], d["block_table"].shape[1]
-        MAXC, CAP = ((far["far_k"].shape[1], far["far_table"].shape[1])
-                     if far else (0, 0))
-        out = torch.empty_like(d["q"])
-        util = (torch.empty(B, KV, CAP, dtype=torch.float32, device=dev)
-                if far else None)
-        p = runtime.ptr
-        ptrs = [p(x) for x in args] + [p(d["cur_k"]), p(d["cur_v"]),
-                                       p(scales.get("k_scale")),
-                                       p(scales.get("v_scale"))]
-        ptrs += [p(far.get(k)) for k in ("far_k", "far_v", "far_table",
-                                         "far_valid")] + [p(out), p(util)]
-        q_name = "bf16" if d["q"].dtype == torch.bfloat16 else "f32"
-        suffix = {torch.float8_e4m3fn: "_fp8", torch.int8: "_int8"}.get(
-            d["pool_k"].dtype, "")
-        fn = getattr(lib, f"paged_decode_{q_name}{suffix}")
-        stream = runtime.stream_ptr(dev)
 
-        def parent_call(fn=fn, ptrs=ptrs, out=out, util=util, dims=(
-                B, H, KV, hd, BT, NB, MAXC, CAP, W)):
-            st = fn(*ptrs, *dims, 1, 1.0 / math.sqrt(dims[3]), pa.THREADS,
-                    stream)
-            if st:
-                raise RuntimeError(f"parent decode kernel: cudaError {st}")
-            if util is not None:   # the wrapper's fixed-order sum, as change
-                util.sum(dim=1)
-            return out
+        def parent_call(args=args, kw=kw):
+            return parent_decode(torch, pa, plib, args, kw)
 
         def change(args=args, kw=kw, far=bool(far)):
             got = pa.paged_decode_attention(*args, **kw)
@@ -1158,6 +1183,11 @@ def decode_ab(torch, pa, res, parent, shape):
             byts, flops = decode_work(d, W, BT, 2)
             row.update(limit=DECODE_FULL_ATOL[key],
                        sdpa_ms=time_ms(torch, sdpa_decode(torch, lib_d, W)),
+                       **bound(byts, flops, "bfloat16"))
+        elif far:
+            byts, flops = decode_far_work(d, far, W, BT, 2)
+            row.update(sdpa_ms=time_ms(torch, sdpa_decode_far(torch, d, far,
+                                                              W)),
                        **bound(byts, flops, "bfloat16"))
         rows.append(row)
     log(json.dumps({"paged_decode_ab": rows, "card": nvidia_smi_line()}))
@@ -1653,6 +1683,8 @@ def phase_serve_full(torch, n_layers, merge_peak=None, device="cuda",
         assert a["decode_kernel_launches"] == steps * L, a
         assert a["farview_kernel_launches"] == steps * L, a
         assert launches["paged_decode"] == steps * L, launches
+        # bf16 with the far view runs the split-KV kernel and its far combine
+        assert launches["paged_decode_combine"] == steps * L, launches
         assert launches["farview_summarize"] == steps * L, launches
     peak = a["peak_reserved_kv"]
     if merge_peak is not None:
@@ -1907,9 +1939,8 @@ def phase_decode_agreement(torch, parent=None, n_layers=2):
     smaller magnitude (a bias toward zero shows above one half), max abs
     diff. With ``parent`` (an unpacked checkout) the parent's kernel runs
     on the same inputs too. One JSON line with the card."""
-    import math
     from repro_torch.configs import get_config
-    from repro_torch.kernels import paged_attention as pa, runtime
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch import serve
     from repro_torch.models import registry
     from repro_torch.serving.factory import build
@@ -1933,26 +1964,6 @@ def phase_decode_agreement(torch, parent=None, n_layers=2):
             t["max_abs"] = max(t["max_abs"], float(
                 (got.float() - want.float()).abs().max()))
 
-        def parent_out(args, kw):
-            q, pk = args[0], args[1]
-            B, H, hd = q.shape
-            P, BT, KV, _ = pk.shape
-            out = torch.empty_like(q)
-            suffix = {torch.float8_e4m3fn: "_fp8", torch.int8: "_int8"}.get(
-                pk.dtype, "")
-            p = runtime.ptr
-            ptrs = [p(x) for x in args] + [
-                p(kw["cur_k"]), p(kw["cur_v"]), p(kw.get("k_scale")),
-                p(kw.get("v_scale"))] + [p(None)] * 4 + [p(out), p(None)]
-            st = getattr(lib, f"paged_decode_bf16{suffix}")(
-                *ptrs, B, H, KV, hd, BT, args[3].shape[1], 0, 0,
-                int(kw["near_window"]), int(bool(kw["skip_extent"])),
-                1.0 / math.sqrt(hd), pa.THREADS,
-                runtime.stream_ptr(q.device))
-            if st:
-                raise RuntimeError(f"parent decode kernel: cudaError {st}")
-            return out
-
         def wrapped(*args, **kw):
             got = wrapper(*args, **kw)
             want = pa.plain(*args, **kw)
@@ -1960,7 +1971,8 @@ def phase_decode_agreement(torch, parent=None, n_layers=2):
             seen["elements"] += got.numel()
             count("change", got, want)
             if lib is not None:
-                count("parent", parent_out(args, kw), want)
+                count("parent", parent_decode(torch, pa, lib, args, kw),
+                      want)
             return got
 
         pa.paged_decode_attention = wrapped
@@ -2363,12 +2375,14 @@ def phase_parity_encdec(torch, n_layers=2, device="cuda", full_width=True):
     return out
 
 
-def phase_profile(torch, n_layers, out_path=None, arch=ARCH):
+def phase_profile(torch, n_layers, out_path=None, arch=ARCH,
+                  mode="paged_merge"):
     """torch.profiler over the serve phase's trace (``arch=ENCDEC``: the
-    serve_encdec trace at full depth), every step after the first
-    (warm-up) until the engine drains: device busy share and kernel time
-    by category. Not in the default phases; ``out_path`` receives the
-    summary and the profiler's table of the top kernels."""
+    serve_encdec trace at full depth; ``mode="full"``: serve_full's), every
+    step after the first (warm-up) until the engine drains: device busy
+    share and kernel time by category. Not in the default phases;
+    ``out_path`` receives the summary and the profiler's table of the top
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -2381,10 +2395,10 @@ def phase_profile(torch, n_layers, out_path=None, arch=ARCH):
         reqs = encdec_trace(cfg.d_model, cfg.vocab_size)
         n_layers = cfg.dec_layers
     else:
-        s = SERVE
+        s = SERVE_FULL if mode == "full" else SERVE
         cfg = get_config(ARCH).replace(n_layers=n_layers)
         eng = build(ARCH, cfg=cfg, seed=s["seed"], device="cuda",
-                    mode="paged_merge", batch=s["batch"],
+                    mode=mode, batch=s["batch"],
                     max_seq=s["max_seq"], near_window=s["near_window"],
                     block_tokens=s["block_tokens"],
                     prefill_chunk=s["prefill_chunk"])[0]
@@ -2416,12 +2430,13 @@ def phase_profile(torch, n_layers, out_path=None, arch=ARCH):
         cat = ("paged_decode kernel" if "paged_decode" in n else
                "chunked_prefill kernel" if "chunked_prefill" in n else
                "prefill_flash kernel (encoder)" if "prefill_flash" in n else
+               "farview_summarize kernel" if "farview_summarize" in n else
                "matmul (cuBLAS)" if any(k in n for k in (
                    "nvjet", "splitkreduce", "gemm", "gemv", "xmma", "cutlass"))
                else "memcpy" if "memcpy" in n else "other (elementwise etc.)")
         t, c = cats.get(cat, (0.0, 0))
         cats[cat] = (t + (e.time_range.end - e.time_range.start), c + 1)
-    out = dict(arch=arch, steps=eng.steps_run - step0,
+    out = dict(arch=arch, mode=mode, steps=eng.steps_run - step0,
                chunk_dispatches=eng._chunk_dispatches - chunk0,
                encodes=eng.encodes_run - enc0,
                n_layers=n_layers, wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
@@ -2429,9 +2444,10 @@ def phase_profile(torch, n_layers, out_path=None, arch=ARCH):
                by_category_ms={k: v[0] / 1e3 for k, v in sorted(cats.items())},
                launches_by_category={k: v[1] for k, v in sorted(cats.items())})
     log("profile:", json.dumps(out))
-    if out_path and arch == ENCDEC:
+    if out_path and (arch == ENCDEC or mode == "full"):
         p = Path(out_path)
-        out_path = p.with_name(f"{p.stem}_encdec{p.suffix}")
+        tag = "encdec" if arch == ENCDEC else "full"
+        out_path = p.with_name(f"{p.stem}_{tag}{p.suffix}")
     if out_path:
         table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=40)
@@ -2452,15 +2468,17 @@ def main(argv=None):
                             "parity_full,serve_encdec,parity_encdec,"
                             "serve_quant,parity_quant",
                     help="comma-separated subset (the device phase always "
-                         "runs); 'profile' and 'profile_encdec' add a "
-                         "torch.profiler pass over serve's and serve_encdec's "
-                         "traces; 'decode_agreement' holds the engine's bf16 "
+                         "runs); 'profile', 'profile_full' and "
+                         "'profile_encdec' add a torch.profiler pass over "
+                         "serve's, serve_full's and serve_encdec's traces; "
+                         "'decode_agreement' holds the engine's bf16 "
                          "decode against its plain version on the engine's "
                          "own inputs (and the --ab-parent kernel)")
     ap.add_argument("--profile-out", default=None,
                     help="file for the profile phase's kernel table")
     ap.add_argument("--ab-parent", default=None,
-                    help="an unpacked checkout (the parent commit): the "
+                    help="an unpacked checkout (the parent commit, from "
+                         "before or after the split-KV decode): the "
                          "kernels phase then times its paged_decode.cu and "
                          "chunked_prefill.cu against this one's, parent, "
                          "change, change, parent")
@@ -2512,7 +2530,9 @@ def main(argv=None):
         assert not missing, f"kernels never launched by serve: {missing}"
     if "serve_full" in phases:
         lf, _ = phase_serve_full(torch, args.n_layers, merge_peak)
-        launches["paged_decode_far"] = lf["paged_decode"]
+        # the far view's row times the split kernel and the far combine
+        launches["paged_decode_far"] = (lf["paged_decode"]
+                                        + lf["paged_decode_combine"])
         launches["farview_summarize"] = lf["farview_summarize"]
         missing = [k for k in ("paged_decode", "farview_summarize")
                    if lf[k] <= 0]
@@ -2552,6 +2572,8 @@ def main(argv=None):
         phase_decode_agreement(torch, args.ab_parent)
     if "profile" in phases:
         phase_profile(torch, args.n_layers, args.profile_out)
+    if "profile_full" in phases:
+        phase_profile(torch, args.n_layers, args.profile_out, mode="full")
     if "profile_encdec" in phases:
         phase_profile(torch, args.n_layers, args.profile_out, arch=ENCDEC)
 

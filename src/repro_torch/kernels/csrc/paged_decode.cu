@@ -1,9 +1,10 @@
 // Paged near-window GQA decode attention for Hopper (sm_90a).
 //
-// paged_decode_kernel (and, for bf16 q in the engine form without the far
-// view, paged_decode_split_kernel with paged_decode_combine_kernel, below)
-// replaces the Pallas TPU kernel `_decode_kernel` (with
-// its update `_online_block_update`) in src/repro/kernels/paged_attention.py,
+// paged_decode_kernel (and, for bf16 q in the engine form,
+// paged_decode_split_kernel with paged_decode_combine_kernel, or with
+// paged_decode_combine_far_kernel under the far view, below) replaces the
+// Pallas TPU kernel `_decode_kernel` (with its update
+// `_online_block_update`) in src/repro/kernels/paged_attention.py,
 // and computes what `ref.paged_decode_attention_ref(..., cur_k, cur_v,
 // skip_extent, far_k, far_v, far_table, far_valid)` computes: the engine's
 // decode path, where the pool is read-only inside the layer loop and the
@@ -54,27 +55,27 @@
 // in a fixed order (no atomics), so the host's utility EMA -- and the far
 // table it selects -- is the same from run to run.
 //
-// Split-KV (bf16 q; bf16, fp8_e4m3 and int8 pools; the engine form
-// without the far view): paged_decode_split_kernel on the tensor cores,
-// then paged_decode_combine_kernel. Grid (B, KV * ceil(n_rep / 16), S): a
-// CTA of 4 warps owns up to 16 grouped query heads of one kv head (rows
-// past n_rep zero) and split s of the window, blocks [s nbs, (s + 1) nbs)
-// of [0, NB) with nbs = ceil(NB / S). S comes from the shapes and the SM
-// count alone (paged_attention.split_count), never from seq_lens or
+// Split-KV (bf16 q; bf16, fp8_e4m3 and int8 pools; the engine form, and with a
+// bf16 pool the far view too): paged_decode_split_kernel on the tensor cores,
+// then paged_decode_combine_kernel (its far form,
+// paged_decode_combine_far_kernel, under the far view). Grid (B, KV *
+// ceil(n_rep / 16), S): a CTA of 4 warps owns up to 16 grouped query heads of
+// one kv head (rows past n_rep zero) and split s of the window, blocks [s nbs,
+// (s + 1) nbs) of [0, NB) with nbs = ceil(NB / S). S comes from the shapes and
+// the SM count alone (paged_attention.split_count), never from seq_lens or
 // window_base, so one shape always launches one grid. The split's rows are
-// walked in 64-key tiles from its first row; with skip_extent only the
-// tiles that meet ref.active_block_extent's blocks. Each key row is
-// gathered through block_table (any BT) with 16-byte cp.async copies into
-// a 2-stage ring; only rows at window positions (pos >= 0, pos > t - W,
-// pos < t) are read, every other row is zero-filled and masked, decided
-// from positions alone, so a tile outside the extent is a bitwise no-op
-// and skip on == off bitwise. Layout: the query rows sit on the 16-row
-// side of mma.m16n8k16 (S = Q.K^T, 5 of 16 rows used at qwen's n_rep 5):
-// each warp takes 16 keys of the tile, its score fragment is the A
-// fragment of P.V with no shuffle, and decode is bound by bytes, so the
-// idle rows cost nothing that shows. A narrow pool stages raw codes and
-// widens them to bf16 in shared memory (exact); k_scale multiplies the
-// score columns, v_scale p's columns, in f32.
+// walked in 64-key tiles from its first row; with skip_extent only the tiles
+// that meet ref.active_block_extent's blocks. Each key row is gathered through
+// block_table (any BT) with 16-byte cp.async copies into a 2-stage ring; only
+// rows at window positions (pos >= 0, pos > t - W, pos < t) are read, every
+// other row is zero-filled and masked, decided from positions alone, so a tile
+// outside the extent is a bitwise no-op and skip on == off bitwise. Layout:
+// the query rows sit on the 16-row side of mma.m16n8k16 (S = Q.K^T, 5 of 16
+// rows used at qwen's n_rep 5): each warp takes 16 keys of the tile, its score
+// fragment is the A fragment of P.V with no shuffle, and decode is bound by
+// bytes, so the idle rows cost nothing that shows. A narrow pool stages raw
+// codes and widens them to bf16 in shared memory (exact); k_scale multiplies
+// the score columns, v_scale p's columns, in f32.
 //
 // Precision. The split kernel stays as close to the plain version as the
 // f32 CUDA-core kernel it replaces:
@@ -96,7 +97,18 @@
 // token once, last, and writes acc / max(l, 1e-20) in bf16; a retired slot
 // writes zeros. No atomics: run == run bitwise.
 //
-// Design of paged_decode_kernel (f32 q, the far view, the pool-only form).
+// The far view adds no work to the split CTAs (same grid, same S, same
+// workspace). Its far combine takes one CTA per (slot, kv head), one warp
+// per query head of the group (n_rep <= 32): each warp scores the CAP far
+// entries against its query with f32 FMAs, takes its max over those
+// scores, the splits' m and the current token, and folds the far entries
+// first (c = 0..CAP-1), then the splits and the current token as the
+// combine does, so a far view whose entries are all masked gives the
+// no-far output bitwise. far_util[b, g, c] is summed over the group's
+// query heads in the order 0..n_rep-1 in shared memory (no atomics).
+//
+// Design of paged_decode_kernel (f32 q, with or without the far view; the
+// pool-only form).
 // One thread block per (slot, kv head); a runtime loop inside the
 // block walks the window blocks [ext_lo, ext_hi) -- the TPU's sequential
 // grid axis becomes this loop. The extent is derived in-kernel from
@@ -798,6 +810,267 @@ cudaError_t launch_combine(const void* work, const void* q, const void* cur_k,
   return cudaGetLastError();
 }
 
+// The far form of the combine (the far view, bf16 pool): one CTA per (slot,
+// kv head), one warp per query head of its group (n_rep <= 32). The CTA
+// stages the CAP far rows selected by far_table[b] (K and V of kv head g;
+// a masked entry zero-filled, never read) in shared memory with 16-byte
+// cp.async copies (rows padded by 16 bytes), while each warp loads what the
+// combine loads, its first batch of split partials included, and puts its
+// query in shared memory as f32. Each warp then scores the far entries
+// against its query, lane c entry c, with f32 FMAs (q . k over hd in four
+// interleaved sums, times scale; -inf where far_valid <= 0), takes its max
+// over those scores, the splits' m and the current token, and folds the far
+// entries first, in the order c = 0..CAP-1 (p = expf(s - mx)), then splits
+// 0..S-1 and the current token once, last, with
+// paged_decode_combine_kernel's statements. A masked entry has p = 0 and a
+// zero-filled row, so it adds exactly nothing (x + 0 = x, fmaf(0, 0, x) =
+// x): with every entry masked the output is the combine's, bitwise.
+// far_util[b, g, c] = entry c's p / max(l, 1e-20) summed over the warps r
+// = 0..n_rep-1 in that order; a retired slot writes zeros. No atomics: run
+// == run bitwise.
+// kWarps bounds the CTA's warps (n_rep <= kWarps), and so the registers a
+// thread may hold.
+template <int kWarps>
+__global__ void __launch_bounds__(kWarps * 32) paged_decode_combine_far_kernel(
+    const float* __restrict__ work,           // as paged_decode_split_kernel's
+    const __nv_bfloat16* __restrict__ q,      // (B, H, hd)
+    const __nv_bfloat16* __restrict__ cur_k,  // (B, KV, hd)
+    const __nv_bfloat16* __restrict__ cur_v,  // (B, KV, hd)
+    const int* __restrict__ slot_active,      // (B,)
+    const __nv_bfloat16* __restrict__ far_k,  // (B, MAXC, KV, hd)
+    const __nv_bfloat16* __restrict__ far_v,  // (B, MAXC, KV, hd)
+    const int* __restrict__ far_table,        // (B, CAP)
+    const int* __restrict__ far_valid,        // (B, CAP)
+    __nv_bfloat16* __restrict__ out,          // (B, H, hd)
+    float* __restrict__ far_util,             // (B, KV, CAP)
+    int B, int H, int KV, int hd, int S, int MAXC, int CAP, float scale) {
+  namespace mm = kvrm::mma;
+  constexpr int kPer = 256 / 32;  // hd <= 256: elements per lane
+  constexpr int kBatch = 8;       // splits whose partials load together
+  extern __shared__ __align__(16) unsigned char smem_far[];
+  const int b = blockIdx.x, g = blockIdx.y;
+  const int n_rep = H / KV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = b * H + g * n_rep + warp;
+  const int ldf = hd + 8;  // staged far row stride (bf16), 16-byte rows
+  __nv_bfloat16* Fk = reinterpret_cast<__nv_bfloat16*>(smem_far);  // CAP rows
+  __nv_bfloat16* Fv = Fk + (size_t)CAP * ldf;                      // CAP rows
+  float* Qf = reinterpret_cast<float*>(Fv + (size_t)CAP * ldf);  // n_rep x hd
+  float* Fs = Qf + (size_t)n_rep * hd;                           // n_rep x CAP
+  float* qs = Qf + (size_t)warp * hd;   // this warp's query, f32
+  float* fs = Fs + (size_t)warp * CAP;  // this warp's far scores, then p
+  float* util = far_util + ((size_t)b * KV + g) * CAP;
+  const int* ftab = far_table + (size_t)b * CAP;
+  const int* fval = far_valid + (size_t)b * CAP;
+  const int nj = (hd - lane + 31) / 32;  // this lane's columns lane + 32 j
+  __nv_bfloat16* o = out + (size_t)row * hd;
+  const bool active = slot_active[b] > 0;
+  // the far rows of kv head g, 16 bytes a copy (hd % 8 == 0)
+  const int cpr = hd / 8;
+  for (int c = threadIdx.x; c < CAP * cpr; c += blockDim.x) {
+    const int e = c / cpr, d = (c - e * cpr) * 8;
+    const bool ok = active && fval[e] > 0;
+    const int idx = min(max(ftab[e], 0), MAXC - 1);
+    const size_t off = ok ? (((size_t)b * MAXC + idx) * KV + g) * hd + d : 0;
+    mm::cp_async16(Fk + (size_t)e * ldf + d, far_k + off, ok);
+    mm::cp_async16(Fv + (size_t)e * ldf + d, far_v + off, ok);
+  }
+  mm::cp_async_commit();
+  if (!active) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (j < nj) o[lane + 32 * j] = __float2bfloat16(0.f);
+    if (warp == 0)
+      for (int c = lane; c < CAP; c += 32) util[c] = 0.f;
+    mm::cp_async_wait<0>();  // (every copy zero-filled: nothing in flight)
+    return;
+  }
+
+  const __nv_bfloat16* qr = q + (size_t)row * hd;
+  const __nv_bfloat16* ck = cur_k + ((size_t)b * KV + g) * hd;
+  const __nv_bfloat16* cv = cur_v + ((size_t)b * KV + g) * hd;
+  const float* wm = work + (size_t)row * S;
+  const float* wl = work + (size_t)B * H * S + (size_t)row * S;
+  const float* wa = work + (size_t)2 * B * H * S + (size_t)row * S * hd;
+  float qv[kPer], kv[kPer], vv[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const bool ok = j < nj;
+    qv[j] = ok ? __bfloat162float(qr[lane + 32 * j]) : 0.f;
+    kv[j] = ok ? __bfloat162float(ck[lane + 32 * j]) : 0.f;
+    vv[j] = ok ? __bfloat162float(cv[lane + 32 * j]) : 0.f;
+    if (ok) qs[lane + 32 * j] = qv[j];
+  }
+  // lane s holds split s's m and l (S <= 32; more in further passes)
+  const float m0 = lane < S ? wm[lane] : -INFINITY;
+  const float l0 = lane < S ? wl[lane] : 0.f;
+  // the first batch's partials, in flight with the far rows
+  float a[kBatch][kPer];
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k)
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      a[k][j] = (k < S && j < nj) ? wa[(size_t)k * hd + lane + 32 * j] : 0.f;
+  // the current token's scaled score, the same in every lane (xor
+  // butterfly)
+  float sc = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) sc = fmaf(qv[j], kv[j], sc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sc += __shfl_xor_sync(0xffffffffu, sc, off);
+  sc *= scale;
+  // the max over the splits' m and the current token's score (any order)
+  float mx = fmaxf(sc, m0);
+  for (int s = 32 + lane; s < S; s += 32) mx = fmaxf(mx, wm[s]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+
+  mm::cp_async_wait<0>();
+  __syncthreads();
+  // the far scores, lane c entry c (8 columns a step); then the max over
+  // them too
+  for (int e = lane; e < CAP; e += 32) {
+    const __nv_bfloat16* fk = Fk + (size_t)e * ldf;
+    float d4[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int d = 0; d < hd; d += 8) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(fk + d);
+      const float4 qa = *reinterpret_cast<const float4*>(qs + d);
+      const float4 qb = *reinterpret_cast<const float4*>(qs + d + 4);
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+      const float qq[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 k2 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+        d4[i] = fmaf(qq[2 * i], k2.x, d4[i]);
+        d4[i] = fmaf(qq[2 * i + 1], k2.y, d4[i]);
+      }
+    }
+    float s = ((d4[0] + d4[1]) + (d4[2] + d4[3])) * scale;
+    if (!(fval[e] > 0)) s = -INFINITY;
+    mx = fmaxf(mx, s);
+    fs[e] = s;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  for (int e = lane; e < CAP; e += 32) {
+    const float s = fs[e];
+    fs[e] = s == -INFINITY ? 0.f : expf(s - mx);
+  }
+  __syncwarp();
+  float l = 0.f, acc[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) acc[j] = 0.f;
+  // the far entries first, in the order 0..CAP-1 (p and fs kept for
+  // far_util)
+#pragma unroll 4
+  for (int e = 0; e < CAP; ++e) {
+    const float p = fs[e];
+    l += p;
+    const __nv_bfloat16* fv = Fv + (size_t)e * ldf;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (j < nj)
+        acc[j] = fmaf(p, __bfloat162float(fv[lane + 32 * j]), acc[j]);
+  }
+  for (int s0 = 0; s0 < S; s0 += kBatch) {
+    if (s0 > 0) {  // this batch's partials, all loads first
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          a[k][j] = (s0 + k < S && j < nj)
+                        ? wa[(size_t)(s0 + k) * hd + lane + 32 * j] : 0.f;
+    }
+    const int src = s0 & 31;  // lane of split s0 in this pass's m, l
+    float ms = m0, ls = l0;
+    if (s0 >= 32) {
+      ms = s0 + lane - src < S && lane >= src ? wm[s0 - src + lane] : 0.f;
+      ls = s0 + lane - src < S && lane >= src ? wl[s0 - src + lane] : 0.f;
+    }
+    const float cs = expf(ms - mx);
+    // splits s0 .. s0 + 7 in order, the same in every lane
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (s0 + k >= S) break;
+      const float c = __shfl_sync(0xffffffffu, cs, src + k);
+      l = fmaf(__shfl_sync(0xffffffffu, ls, src + k), c, l);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) acc[j] = fmaf(a[k][j], c, acc[j]);
+    }
+  }
+  const float pc = expf(sc - mx);
+  l += pc;
+  const float den = fmaxf(l, 1e-20f);
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+    if (j < nj)
+      o[lane + 32 * j] = __float2bfloat16(fmaf(pc, vv[j], acc[j]) / den);
+  // each far entry's probability for this head (0 when masked), then
+  // summed over the group's heads in the order 0..n_rep-1
+  __syncwarp();  // (every lane has read fs in the fold)
+  for (int e = lane; e < CAP; e += 32) fs[e] = fs[e] / den;
+  __syncthreads();
+  if (warp == 0)
+    for (int c = lane; c < CAP; c += 32) {
+      float u = 0.f;
+      for (int r = 0; r < n_rep; ++r) u += Fs[(size_t)r * CAP + c];
+      util[c] = u;
+    }
+}
+
+// shared memory of the far combine: the CAP staged K and V rows (bf16,
+// padded by 8), the n_rep queries (f32) and the n_rep x CAP far scores
+size_t combine_far_smem_bytes(int n_rep, int hd, int CAP) {
+  return (size_t)2 * CAP * (hd + 8) * sizeof(__nv_bfloat16) +
+         (size_t)n_rep * (hd + CAP) * sizeof(float);
+}
+
+// What the far combine takes: up to 32 query heads a kv head (a warp each),
+// a far_util, and far rows it can copy 16 bytes at a time (hd % 8 == 0,
+// 16-byte aligned far_k / far_v).
+bool combine_far_fits(int n_rep, int hd, int MAXC, int CAP,
+                      const void* far_k, const void* far_v,
+                      const void* far_util) {
+  return n_rep <= 32 && hd % 8 == 0 && MAXC >= 1 && CAP >= 0 &&
+         far_util != nullptr &&
+         reinterpret_cast<uintptr_t>(far_k) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(far_v) % 16 == 0;
+}
+
+// (launch_split_decode has checked combine_far_fits)
+cudaError_t launch_combine_far(const void* work, const void* q,
+                               const void* cur_k, const void* cur_v,
+                               const void* slot_active, const void* far_k,
+                               const void* far_v, const void* far_table,
+                               const void* far_valid, void* out,
+                               void* far_util, int B, int H, int KV, int hd,
+                               int S, int MAXC, int CAP, float scale,
+                               void* stream) {
+  const int n_rep = H / KV;
+  const size_t smem = combine_far_smem_bytes(n_rep, hd, CAP);
+  // up to 8 query heads a kv head (qwen2.5-32b's 5 among them) in CTAs of
+  // at most 256 threads, whose registers hold a batch of partials unspilled
+  auto kernel = n_rep <= 8 ? paged_decode_combine_far_kernel<8>
+                           : paged_decode_combine_far_kernel<32>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3(B, KV), n_rep * 32, smem, (cudaStream_t)stream>>>(
+      (const float*)work, (const __nv_bfloat16*)q,
+      (const __nv_bfloat16*)cur_k, (const __nv_bfloat16*)cur_v,
+      (const int*)slot_active, (const __nv_bfloat16*)far_k,
+      (const __nv_bfloat16*)far_v, (const int*)far_table,
+      (const int*)far_valid, (__nv_bfloat16*)out, (float*)far_util, B, H, KV,
+      hd, S, MAXC, CAP, scale);
+  return cudaGetLastError();
+}
+
 template <int HD, typename TP>
 cudaError_t launch_split(const void* q, const void* pool_k,
                          const void* pool_v, const void* block_table,
@@ -825,24 +1098,31 @@ cudaError_t launch_split(const void* q, const void* pool_k,
   return cudaGetLastError();
 }
 
-// The engine form with bf16 q (no far view): the split kernel, one
-// instantiation per hd (a multiple of 16 up to 256), then the combine.
-// S splits of [0, NB) (1 <= S <= NB); work holds B H S (hd + 2) f32.
+// The engine form with bf16 q: the split kernel, one instantiation per hd
+// (a multiple of 16 up to 256), then the combine, or with the far view
+// (non-null far_k) its far form. S splits of [0, NB) (1 <= S <= NB); work
+// holds B H S (hd + 2) f32.
 template <typename TP>
 int launch_split_decode(const void* q, const void* pool_k, const void* pool_v,
                         const void* block_table, const void* window_base,
                         const void* seq_lens, const void* slot_active,
                         const void* cur_k, const void* cur_v,
-                        const void* k_scale, const void* v_scale, void* out,
-                        void* work, int B, int H, int KV, int hd, int BT,
-                        int NB, int S, int near_window, int skip_extent,
-                        float scale, void* stream) {
+                        const void* k_scale, const void* v_scale,
+                        const void* far_k, const void* far_v,
+                        const void* far_table, const void* far_valid,
+                        void* out, void* far_util, void* work, int B, int H,
+                        int KV, int hd, int BT, int NB, int MAXC, int CAP,
+                        int S, int near_window, int skip_extent, float scale,
+                        void* stream) {
   // 16-byte copies: 16-byte aligned q and pools (rows of hd * elem bytes,
-  // a multiple of 16 for every hd taken)
+  // a multiple of 16 for every hd taken); the far combine's rules checked
+  // before the split kernel runs
   if (work == nullptr || S < 1 || S > NB ||
       reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(pool_k) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(pool_v) % 16 != 0)
+      reinterpret_cast<uintptr_t>(pool_v) % 16 != 0 ||
+      (far_k != nullptr &&
+       !combine_far_fits(H / KV, hd, MAXC, CAP, far_k, far_v, far_util)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
 #define KVRM_HD(n)                                                           \
@@ -862,6 +1142,10 @@ int launch_split_decode(const void* q, const void* pool_k, const void* pool_v,
   }
 #undef KVRM_HD
   if (err != cudaSuccess) return (int)err;
+  if (far_k != nullptr)
+    return (int)launch_combine_far(work, q, cur_k, cur_v, slot_active, far_k,
+                                   far_v, far_table, far_valid, out, far_util,
+                                   B, H, KV, hd, S, MAXC, CAP, scale, stream);
   return (int)launch_combine(work, q, cur_k, cur_v, slot_active, out, B, H,
                              KV, hd, S, scale, stream);
 }
@@ -1061,21 +1345,24 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
   if (!scales_fit<T, TP>(k_scale, v_scale) || (kQuant && far) ||
       (far && !cur) || cur != (cur_v != nullptr))
     return (int)cudaErrorInvalidValue;
-  // bf16 q in the engine form without the far view: the split-KV kernel
+  // bf16 q in the engine form, with or without the far view: the split-KV
+  // kernel (bf16 q has no far instantiation of paged_decode_kernel)
   constexpr bool kSplit = std::is_same<T, __nv_bfloat16>::value;
   if constexpr (kSplit) {
-    if (cur && !far)
+    if (cur)
       return launch_split_decode<TP>(
           q, pool_k, pool_v, block_table, window_base, seq_lens, slot_active,
-          cur_k, cur_v, k_scale, v_scale, out, work, B, H, KV, hd, BT, NB,
-          splits, near_window, skip_extent, scale, stream);
+          cur_k, cur_v, k_scale, v_scale, far_k, far_v, far_table, far_valid,
+          out, far_util, work, B, H, KV, hd, BT, NB, MAXC, CAP, splits,
+          near_window, skip_extent, scale, stream);
   }
   const size_t smem = smem_bytes(H / KV, hd, BT, far ? CAP : 0);
-  // (a quantized pool has no far instantiation: kFar = !kQuant)
-  auto kernel = far ? paged_decode_kernel<T, TP, !kQuant, true>
-                    : paged_decode_kernel<T, TP, false, false>;
+  auto kernel = paged_decode_kernel<T, TP, false, false>;  // pool-only form
   if constexpr (!kSplit) {
-    if (cur && !far) kernel = paged_decode_kernel<T, TP, false, true>;
+    // (a quantized pool has no far instantiation: kFar = !kQuant)
+    if (cur)
+      kernel = far ? paged_decode_kernel<T, TP, !kQuant, true>
+                   : paged_decode_kernel<T, TP, false, true>;
   }
   cudaError_t err = fit_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1129,10 +1416,16 @@ size_t paged_decode_smem_bytes(int n_rep, int hd, int BT, int CAP) {
   return smem_bytes(n_rep, hd, BT, CAP);
 }
 
-// The split-KV kernel's (bf16 q, the engine form without the far view), at
-// head size hd, for a bf16 (quant 0) or narrow (quant 1) pool.
+// The split-KV kernel's (bf16 q, the engine form), at head size hd, for a
+// bf16 (quant 0) or narrow (quant 1) pool.
 size_t paged_decode_split_smem_bytes(int hd, int quant) {
   return split_smem_bytes(hd, quant != 0);
+}
+
+// Its far combine's (bf16 q with the far view): CAP far entries, n_rep
+// query heads a kv head.
+size_t paged_decode_combine_far_smem_bytes(int n_rep, int hd, int CAP) {
+  return combine_far_smem_bytes(n_rep, hd, CAP);
 }
 
 // The double-buffered kernel's: its tile and two stages of pool_elem-byte
@@ -1156,9 +1449,10 @@ int paged_decode_combine_bf16(const void* work, const void* q,
 // One entry per (q dtype, pool dtype). Null cur_k / cur_v: the pool-only
 // form. Null far_k / far_v / far_table / far_valid / far_util: no far view.
 // k_scale / v_scale: (P, KV) f32 for a quantized pool, null otherwise.
-// bf16 q in the engine form without the far view runs the split-KV kernel
-// and its combine: work (B H splits (hd + 2) f32) and splits (1..NB, from
-// the shapes: paged_attention.split_count); the other forms ignore both.
+// bf16 q in the engine form runs the split-KV kernel and its combine (the
+// far combine with the far view: n_rep <= 32, 16-byte aligned far_k /
+// far_v): work (B H splits (hd + 2) f32) and splits (1..NB, from the
+// shapes: paged_attention.split_count); the other forms ignore both.
 #define PAGED_DECODE_ENTRY(NAME, T, TP)                                      \
   int NAME(const void* q, const void* pool_k, const void* pool_v,           \
            const void* block_table, const void* window_base,                \

@@ -174,6 +174,47 @@ def combine_plain(work, q, cur_k, cur_v, slot_active, *, splits: int):
     return out.to(q.dtype)
 
 
+def combine_far_plain(work, q, cur_k, cur_v, slot_active, far_k, far_v,
+                      far_table, far_valid, *, splits: int):
+    """The far combine kernel's plain version: :func:`combine_plain` with
+    the CAP far entries selected by ``far_table`` (``far_valid`` > 0) in the
+    same softmax, their scores q.far_k / sqrt(hd) folded first. Returns
+    ``(out, far_util)``, far_util (B, KV, CAP) f32 as the kernel writes it:
+    each entry's probability summed over the n_rep query heads of a kv head
+    (the wrapper sums it over KV). Retired slots zero."""
+    B, H, hd = q.shape
+    KV = cur_k.shape[1]
+    n_rep = H // KV
+    CAP = far_table.shape[1]
+    n = B * H * splits
+    m = work[:n].reshape(B, H, splits)
+    l = work[n:2 * n].reshape(B, H, splits)
+    acc = work[2 * n:].reshape(B, H, splits, hd)
+    ck = cur_k.float().repeat_interleave(n_rep, dim=1)
+    cv = cur_v.float().repeat_interleave(n_rep, dim=1)
+    sc = (q.float() * ck).sum(dim=-1) / math.sqrt(hd)
+    idx = far_table.long().clamp(0, far_k.shape[1] - 1)[:, :, None, None]
+    idx = idx.expand(B, CAP, KV, hd)
+    fk, fv = (torch.gather(x, 1, idx).float().repeat_interleave(n_rep, dim=2)
+              for x in (far_k, far_v))                        # (B, CAP, H, hd)
+    sf = torch.einsum("bhd,bchd->bhc", q.float(), fk) / math.sqrt(hd)
+    sf = sf.masked_fill(~(far_valid > 0)[:, None, :], -math.inf)
+    mx = torch.maximum(m.amax(dim=-1), sc)
+    if CAP:
+        mx = torch.maximum(mx, sf.amax(dim=-1))
+    c = torch.exp(m - mx[..., None])
+    pc = torch.exp(sc - mx)
+    pf = torch.exp(sf - mx[..., None])
+    den = torch.clamp(pf.sum(dim=-1) + (l * c).sum(dim=-1) + pc, min=1e-20)
+    out = (torch.einsum("bhc,bchd->bhd", pf, fv)
+           + (acc * c[..., None]).sum(dim=-2) + pc[..., None] * cv) \
+        / den[..., None]
+    live = (slot_active > 0)[:, None, None]
+    out = torch.where(live, out, torch.zeros_like(out))
+    util = torch.where(live, pf / den[..., None], torch.zeros_like(pf))
+    return out.to(q.dtype), util.reshape(B, KV, n_rep, CAP).sum(dim=2)
+
+
 def sm_count(device) -> int:
     """The SM count of a CUDA device (asked once per device)."""
     idx = device.index if device.index is not None \
@@ -403,16 +444,19 @@ def paged_decode_attention(q, pool_k, pool_v, block_table, window_base,
         return out
     MAXC, CAP = (0, 0) if far_k is None else (far_k.shape[1],
                                               far_table.shape[1])
-    # bf16 q, the engine form without the far view: the split-KV kernel and
-    # its combine, on a workspace of f32 partials
-    split = q.dtype == torch.bfloat16 and cur_k is not None and far_k is None
+    # bf16 q, the engine form: the split-KV kernel and its combine (its far
+    # form with the far view), on a workspace of f32 partials
+    split = q.dtype == torch.bfloat16 and cur_k is not None
     splits, work = 0, None
     if split:
-        _check_split(q, pool_k, pool_v)
+        _check_split(q, pool_k, pool_v, far_k, far_v)
         splits, _ = split_count(B, KV, H // KV, NB, BT, hd,
                                 sm_count(q.device))
         smem = lib.paged_decode_split_smem_bytes(
             hd, int(pool_k.dtype in QUANT_DTYPES))
+        if far_k is not None:
+            _check_smem(far_combine_smem_bytes(lib, H // KV, hd, CAP),
+                        H // KV, hd, BT, CAP)
         work = torch.empty(B * H * splits * (hd + 2), dtype=torch.float32,
                            device=q.device)
     else:
@@ -440,11 +484,33 @@ def paged_decode_attention(q, pool_k, pool_v, block_table, window_base,
     return out, util.sum(dim=1)
 
 
-def _check_split(q, pool_k, pool_v):
+# bf16 q with the far view: the split-KV kernel, then the combine's far
+# form (``paged_decode_combine_far_kernel``), one warp per query head of a
+# kv head's group; ``split_partials`` and ``combine_far_plain`` are their
+# plain model
+FAR_COMBINE_MAX_REP = 32
+
+
+def far_combine_smem_bytes(lib, n_rep: int, hd: int, CAP: int) -> int:
+    """The far combine's shared memory (bytes), from the library."""
+    fn = lib.paged_decode_combine_far_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_size_t
+    return fn(n_rep, hd, CAP)
+
+
+def _check_split(q, pool_k, pool_v, far_k=None, far_v=None):
     """The split-KV kernel's rules beside ``_check``'s: hd a multiple of 16
-    up to 256 and 16-byte aligned q and pools (its 16-byte copies)."""
+    up to 256 and 16-byte aligned q and pools (its 16-byte copies); with the
+    far view, n_rep at most ``FAR_COMBINE_MAX_REP`` (a warp per query head
+    of a kv head) and 16-byte aligned far_k and far_v."""
     check_split_hd(q.shape[-1])
-    for name, x in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v)):
+    far = () if far_k is None else (("far_k", far_k), ("far_v", far_v))
+    if far and q.shape[1] // pool_k.shape[2] > FAR_COMBINE_MAX_REP:
+        raise ValueError(f"bf16 decode with the far view takes n_rep <= "
+                         f"{FAR_COMBINE_MAX_REP}, got "
+                         f"{q.shape[1] // pool_k.shape[2]}")
+    for name, x in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v), *far):
         if x.data_ptr() % 16:
             raise ValueError(f"bf16 decode needs {name} 16-byte aligned, its "
                              f"data starts at {x.data_ptr():#x}")
